@@ -5,19 +5,29 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device and build: the card's name and power limit, the device count,
-     and the nvcc build of every kernel from kernels/csrc (with its
-     -Xptxas -v report);
+     and the nvcc build of every kernel from kernels/csrc, one nvcc per
+     source, all started together (with each -Xptxas -v report);
   2. every kernel against its plain PyTorch version on the card, exactly,
      at the main path's shapes and at edge cases, each shape timed with
-     CUDA events beside its bandwidth bound, the plain version and one
-     library call that computes the same function (`library_ms`; the port
-     never calls it);
-  3. end to end: run_pipeline on the E. coli-scale benchmark workload
-     (4.6 Mbp, 100 bp reads, 24x, k = 21), legacy then with planted
-     repeats; the contig SHAs must equal the golden oracle's cached in
-     bench_golden_cache.json, and every compaction call site must have
-     launched the kernel (except `tails`, which runs only when no cycle
-     survives simplification).
+     CUDA events beside its bound, the plain version and one library call
+     that computes the same function (`library_ms`; the port never calls
+     it): compact_flagged at its four sites; sort_blocks and merge_blocks
+     at block 256, == TILE, > TILE, one block, two keys with payloads,
+     all-equal keys, heavy ties, INT64_MAX rows, and at the count site
+     (the legacy window stream, 1350 blocks of 65536); sort_pairs_merge
+     whole against torch.sort on that stream;
+  3. end to end on the E. coli-scale benchmark workload (4.6 Mbp, 100 bp
+     reads, 24x, k = 21), the contig SHAs equal to the golden oracle's
+     cached in bench_golden_cache.json:
+     - run_pipeline, legacy then with planted repeats; every compaction
+       call site must have launched the kernel (except `tails`, which runs
+       only when no cycle survives simplification);
+     - the sorter path: count_kmers_device(sorter=sort_pairs_merge) equal
+       to the default sorter's table, saved as the count checkpoint and
+       resumed by run_pipeline; sort_blocks launched once and merge_blocks
+       once per merge level;
+     - run_pipeline(counter="bucket") on both workloads and
+       run_pipeline(counter="hashtable") on legacy.
 The last two lines are a {"kernels": [...]} summary and
 {"ok": true, "device": {...}}. Imports nothing of JAX or genome_tpu.
 """
@@ -28,10 +38,15 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# the data sheet has no integer compare rate; its nearest row, float32
+# outside the tensor cores, taken as one compare-exchange per operation
+OPS_PER_S = 67e12
 REPEATS = 20
+BLOCK = 65536  # sort_pairs_merge's default block
 
 
 def _smi() -> str:
@@ -179,7 +194,7 @@ def phase_profile(w, params, wall_s: float) -> None:
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
 
 
-def phase_e2e(name, w, params, golden) -> dict:
+def phase_e2e(name, w, params, golden, counter="sort", ckpt=None) -> dict:
     import torch
     from genome_tpu_torch.assemble.metrics import Metrics
     from genome_tpu_torch.assemble.pipeline import run_pipeline
@@ -195,13 +210,16 @@ def phase_e2e(name, w, params, golden) -> dict:
     compact.reset_launches()
     t0 = time.perf_counter()
     res = run_pipeline(w["err"], params, capacity=w["capacity"], metrics=m,
-                       device="cuda")
+                       ckpt=ckpt, counter=counter, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(compact.LAUNCHES)
     sha = contigs_sha(res["contigs"])
     phases = {e["phase"]: e for e in m.events if e["event"] == "phase_end"}
     rounds = sum(e["event"] == "simplify_round" for e in m.events)
+    resumed = "count" not in phases
+    if resumed != (ckpt is not None):
+        raise AssertionError(f"{name}: count phase resumed={resumed}")
     print(f"[e2e {name}] wall={wall:.3f} s "
           + " ".join(f"{p}={e['wall_s']:.3f}s" for p, e in phases.items())
           + f" final={phases['contigs']['final_s']:.3f}s "
@@ -210,20 +228,201 @@ def phase_e2e(name, w, params, golden) -> dict:
     print(f"[e2e {name}] windows={res['stats']['n_windows']} "
           f"unique={res['stats']['n_unique']} alive={res['stats']['n_alive']}"
           f" contigs={len(res['contigs'])} "
-          f"bp={sum(map(len, res['contigs']))} count_kmers_per_s="
-          f"{phases['count']['kmers_per_s']} peak_mem_bytes="
+          f"bp={sum(map(len, res['contigs']))} peak_mem_bytes="
           f"{torch.cuda.max_memory_allocated()}", flush=True)
+    if not resumed:
+        print(f"[count {counter}] {name}: wall={phases['count']['wall_s']} s "
+              f"kmers_per_s={phases['count']['kmers_per_s']} retries="
+              f"{sum(e['event'] == 'capacity_overflow' for e in m.events)}",
+              flush=True)
     print(f"[e2e {name}] launches={json.dumps(launches, sort_keys=True)}",
           flush=True)
     print(f"[e2e {name}] sha={sha} golden={want}", flush=True)
     if sha != want:
         raise AssertionError(f"{name}: contig SHA {sha} != golden {want}")
-    missing = [s for s in compact.SITES
-               if s != "tails" and launches.get(s, 0) == 0]
+    # the bucket and hash-table counters compact at count_weighted's
+    # `count_merge` site instead of the two sort-path count sites; a
+    # resumed run does not count at all
+    need = [s for s in compact.SITES if s != "tails"
+            and not (s.startswith("count") and (counter != "sort" or resumed))]
+    if counter != "sort" and not resumed:
+        need.append("count_merge")
+    missing = [s for s in need if launches.get(s, 0) == 0]
     if missing:
         raise AssertionError(f"{name}: no kernel launch at {missing}")
     return dict(wall_s=wall, launches=launches, sha=sha,
                 phases={p: e["wall_s"] for p, e in phases.items()})
+
+
+def _bitonic_inputs(block, nblocks, dtypes, fill, gen):
+    """Arrays for the bitonic kernels: keys by `fill` (random, ties,
+    equal, sentinel rows), payloads random; all below 2^31 except the
+    INT64_MAX rows."""
+    import torch
+    from genome_tpu_torch.kernels.keys import SENTINEL
+    hi = {"random": 2**31 - 1, "ties": 3, "equal": 1, "sentinel": 2**31 - 1}
+    out = []
+    for dt in dtypes:
+        a = torch.randint(0, hi[fill], (block * nblocks,), dtype=dt,
+                          device="cuda", generator=gen)
+        if fill == "sentinel" and dt == torch.int64:
+            a[::5] = SENTINEL
+        out.append(a)
+    return tuple(out)
+
+
+def _bitonic_compare(name, arrays, num_keys, block) -> float:
+    """Kernel vs plain version on the card, exactly; returns max abs err."""
+    import torch
+    from genome_tpu_torch.kernels import bitonic
+    got = getattr(bitonic, name)(arrays, num_keys, block)
+    want = getattr(bitonic, name + "_ref")(arrays, num_keys, block)
+    torch.cuda.synchronize()
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              if a.numel() else 0 for a, b in zip(got, want))
+    if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name} != plain version at block {block} "
+                             f"(max abs err {err})")
+    return float(err)
+
+
+def _network_stages(block: int, merge_only: bool) -> int:
+    lg = block.bit_length() - 1
+    return lg if merge_only else lg * (lg + 1) // 2
+
+
+def phase_bitonic(keys, gen) -> dict:
+    """sort_blocks and merge_blocks against their plain versions at edge
+    cases and at the count site (`keys`: the legacy window stream, padded
+    to whole blocks), each count-site shape timed; then sort_pairs_merge
+    whole against torch.sort. Returns {kernel name: [rows]} and the
+    sort_pairs_merge row under "sort_pairs_merge"."""
+    import torch
+    from genome_tpu_torch.kernels import bitonic
+    from genome_tpu_torch.kernels.mergesort import sort_pairs_merge
+    i32, i64 = torch.int32, torch.int64
+    tile = bitonic.tile_size((keys,), 1 << 30)
+    tile2 = bitonic.tile_size((keys, keys.to(i32)), 1 << 30)
+    edge = [("block 256", 256, 8, (i64,), 1, "random"),
+            ("block == TILE", tile, 3, (i64,), 1, "random"),
+            ("block > TILE", 4 * tile2, 2, (i64, i32), 1, "ties"),
+            ("one block", BLOCK, 1, (i64,), 1, "random"),
+            ("2 keys + payloads", 1024, 4, (i32, i64, i32, i64), 2, "ties"),
+            ("all-equal keys", 512, 4, (i64, i32), 1, "equal"),
+            ("heavy ties", 4096, 4, (i64, i32), 1, "ties"),
+            ("INT64_MAX rows", BLOCK, 2, (i64, i64), 1, "sentinel")]
+    for label, block, nb, dts, nk, fill in edge:
+        arrays = _bitonic_inputs(block, nb, dts, fill, gen)
+        for name in ("sort_blocks", "merge_blocks"):
+            _bitonic_compare(name, arrays, nk, block)
+    print(f"[bitonic] TILE = {tile} (int64 keys), {tile2} (int64 + int32); "
+          f"{len(edge)} edge cases x 2 kernels equal the plain version: "
+          + ", ".join(e[0] for e in edge), flush=True)
+
+    half = torch.sort(keys.view(-1, BLOCK // 2), dim=1).values.view(
+        -1, 2, BLOCK // 2)
+    srt = torch.sort(keys).values
+    shapes = [("sort_blocks", "unsorted", keys), ("sort_blocks", "sorted", srt),
+              ("merge_blocks", "bitonic", torch.cat(
+                  [half[:, :1], half[:, 1:].flip(-1)], 1).reshape(-1)),
+              ("merge_blocks", "sorted", srt)]
+    del half
+    rows: dict = {"sort_blocks": [], "merge_blocks": []}
+    for name, label, x in shapes:
+        fn = getattr(bitonic, name)
+        ref = getattr(bitonic, name + "_ref")
+        err = _bitonic_compare(name, (x,), 1, BLOCK)
+        ms = _time_ms(lambda: fn((x,), 1, BLOCK))
+        plain = _time_ms(lambda: ref((x,), 1, BLOCK), reps=2)
+        lib = _time_ms(lambda: torch.sort(x.view(-1, BLOCK), dim=1), reps=5)
+        n = x.numel()
+        bytes_ms = 2 * n * x.element_size() / HBM_BYTES_PER_S * 1e3
+        cx = n // 2 * _network_stages(BLOCK, name == "merge_blocks")
+        ops_ms = cx / OPS_PER_S * 1e3
+        row = dict(input=label, n=n, block=BLOCK, tile=tile,
+                   compare_exchanges=cx, max_abs_err=err, ms=ms,
+                   plain_ms=plain, bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+                   library_ms=lib)
+        rows[name].append(row)
+        print(f"[bitonic] {name:12s} {label:8s} n={n} kernel={ms:8.3f} ms "
+              f"plain={plain:9.3f} ms bound={row['bound_ms']:7.4f} ms "
+              f"({row['bound_by']}; bytes {bytes_ms:.4f}, ops {ops_ms:.4f}) "
+              f"library={lib:8.3f} ms", flush=True)
+    del srt, shapes
+
+    got = sort_pairs_merge(keys)
+    if not torch.equal(got, torch.sort(keys).values):
+        raise AssertionError("sort_pairs_merge != torch.sort")
+    del got
+    ms = _time_ms(lambda: sort_pairs_merge(keys), reps=3)
+    lib = _time_ms(lambda: torch.sort(keys), reps=10)
+    bound = 2 * keys.numel() * 8 / HBM_BYTES_PER_S * 1e3
+    rows["sort_pairs_merge"] = dict(n=keys.numel(), block=BLOCK, ms=ms,
+                                    torch_sort_ms=lib, bound_ms=bound)
+    print(f"[bitonic] sort_pairs_merge n={keys.numel()} {ms:.3f} ms vs "
+          f"torch.sort {lib:.3f} ms (one-read, one-write bound "
+          f"{bound:.4f} ms)", flush=True)
+    return rows
+
+
+def phase_sorter(w, params, golden) -> dict:
+    """The count layer's sorter hook on the card: count the legacy stream
+    with sort_pairs_merge, hold the table against the default sorter's,
+    then save it as the count checkpoint and resume run_pipeline from it
+    (the contigs must equal the golden SHA)."""
+    import torch
+    from genome_tpu_torch.assemble.checkpoint import PhaseCheckpointer
+    from genome_tpu_torch.assemble.pipeline import extract_stream
+    from genome_tpu_torch.kernels import bitonic, compact
+    from genome_tpu_torch.kernels.count import count_kmers_device
+    from genome_tpu_torch.kernels.keys import SENTINEL
+    from genome_tpu_torch.kernels.mergesort import sort_pairs_merge
+    cap = w["capacity"]
+
+    def count(sorter):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keys = extract_stream(w["err"], params.k, "cuda")
+        n_windows = keys.numel()
+        if n_windows % BLOCK:
+            keys = torch.cat([keys, keys.new_full((-n_windows % BLOCK,),
+                                                  SENTINEL)])
+        res = count_kmers_device(keys, params.min_coverage, cap,
+                                 sorter=sorter)
+        torch.cuda.synchronize()
+        return res, n_windows, time.perf_counter() - t0
+
+    count(sort_pairs_merge)  # warm-up
+    bitonic.reset_launches()
+    compact.reset_launches()
+    got, n_windows, wall = count(sort_pairs_merge)
+    launches = dict(bitonic.LAUNCHES)
+    want, _, wall_default = count(None)
+    for key in ("table", "counts", "n_unique", "overflow"):
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"merge sorter: {key} != default sorter's")
+    if bool(got["overflow"]):
+        raise AssertionError("merge sorter: table overflowed its capacity")
+    levels = (-(-n_windows // BLOCK) - 1).bit_length()
+    print(f"[count merge-sorter] legacy: wall={wall:.4f} s kmers_per_s="
+          f"{round(n_windows / wall)} (default sorter in the same call: "
+          f"{wall_default:.4f} s, {round(n_windows / wall_default)}); "
+          f"unique={int(got['n_unique'])} launches={json.dumps(launches)} "
+          f"merge levels={levels}", flush=True)
+    if launches != {"sort_blocks": 1, "merge_blocks": levels}:
+        raise AssertionError(f"sorter path launches {launches}, expected "
+                             f"sort_blocks 1, merge_blocks {levels}")
+    with tempfile.TemporaryDirectory() as ck:
+        PhaseCheckpointer(ck, params).save(
+            "count", table=got["table"], counts=got["counts"],
+            n_unique=int(got["n_unique"]), n_windows=n_windows)
+        del got, want
+        e2e = phase_e2e("legacy, resumed from the merge-sorter count", w,
+                        params, golden, ckpt=PhaseCheckpointer(ck, params))
+    return dict(launches=launches, count_wall_s=wall,
+                default_count_wall_s=wall_default, sha=e2e["sha"])
 
 
 def main() -> int:
@@ -233,6 +432,7 @@ def main() -> int:
         return 1
     from genome_tpu_torch.io.benchdata import bench_workload
     from genome_tpu_torch.kernels import compact, cubuild
+    from genome_tpu_torch.kernels.keys import SENTINEL
     from genome_tpu_torch.params import AssemblyParams
 
     # ---- phase 1: device and build ----
@@ -276,6 +476,11 @@ def main() -> int:
         ("compact_ids", lambda: _rand(2 * cap2, 0.01, (), gen), 1 << 18),
     ]
     rows = phase_kernels(shapes, gen)
+    keys = extract_stream(legacy["err"], params.k, "cuda")
+    keys = torch.cat([keys, keys.new_full((-keys.numel() % BLOCK,),
+                                          SENTINEL)])
+    brows = phase_bitonic(keys, gen)
+    del keys
 
     # ---- phase 3: end to end, golden SHA parity ----
     here = os.path.dirname(os.path.abspath(__file__))
@@ -284,15 +489,38 @@ def main() -> int:
     phase_e2e("legacy (warm-up)", legacy, params, golden)
     e2e = {"legacy": phase_e2e("legacy", legacy, params, golden)}
     phase_profile(legacy, params, e2e["legacy"]["wall_s"])
+    sorter = phase_sorter(legacy, params, golden)
+    phase_e2e("legacy bucket", legacy, params, golden, counter="bucket")
+    t0 = time.perf_counter()
+    phase_e2e("legacy hashtable", legacy, params, golden, counter="hashtable")
+    print(f"[e2e] hashtable run took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     del legacy
-    e2e["repeats"] = phase_e2e("repeats", bench_workload(1.0, repeats=True),
-                               params, golden)
+    repeats = bench_workload(1.0, repeats=True)
+    e2e["repeats"] = phase_e2e("repeats", repeats, params, golden)
+    phase_e2e("repeats bucket", repeats, params, golden, counter="bucket")
     launches = {s: sum(r["launches"].get(s, 0) for r in e2e.values())
                 for s in compact.SITES}
     print(f"[e2e] launches per site, legacy + repeats: {json.dumps(launches)}",
           flush=True)
 
     head = rows[0]
+
+    def bitonic_entry(name, line):
+        r = brows[name][0]  # the count-site shape the sorter path runs
+        return {
+            "name": name, "route": "cuda",
+            "source": "genome_tpu_torch/kernels/csrc/bitonic.cu",
+            "replaces": f"genome_tpu/kernels/bitonic.py:{line}",
+            # wrapper calls on the sorter path; each is 1-6 __global__
+            # launches at block 65536
+            "launches": sorter["launches"][name],
+            "max_abs_err": max(x["max_abs_err"] for x in brows[name]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "matched_plain": True,
+            "shapes": brows[name]}
+
     summary = {"kernels": [{
         "name": "compact_flagged", "route": "cuda",
         "source": "genome_tpu_torch/kernels/csrc/compact.cu",
@@ -303,7 +531,9 @@ def main() -> int:
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "matched_plain": True,
-        "sites": launches, "shapes": rows}]}
+        "sites": launches, "shapes": rows},
+        bitonic_entry("sort_blocks", 86), bitonic_entry("merge_blocks", 143)],
+        "sort_pairs_merge": brows["sort_pairs_merge"]}
     print(smi)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

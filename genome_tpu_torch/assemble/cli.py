@@ -4,9 +4,9 @@
         -o contigs.fasta --k 21 --min-coverage 2 [--device cuda|cpu] \
         [--checkpoint-dir ck/ --resume] [--metrics run.jsonl] [--profile dir/]
 
-Same flags as the JAX CLI, except that --io offers only `python` and
---counter only `sort` (the native parser and the other counters are not
-ported yet), and there is no golden backend (the JAX package keeps it).
+Same flags as the JAX CLI, with --counter sort|bucket|hashtable, except
+that --io offers only `python` (the native parser is not ported yet) and
+there is no golden backend (the JAX package keeps it).
 """
 
 from __future__ import annotations
@@ -48,8 +48,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-device-kmers", type=int, default=None,
                    help="stream counting in chunks of this many windows "
                         "(bounds device memory; default: one shot)")
-    p.add_argument("--counter", choices=["sort"], default="sort",
-                   help="counting kernel: global sort + run-length encoding")
+    p.add_argument("--counter", choices=["sort", "bucket", "hashtable"],
+                   default="sort",
+                   help="counting kernel: global sort + run-length encoding "
+                        "(default), bucket-partition sort, or batched "
+                        "open-addressing hash table (a parity oracle, far "
+                        "slower than sort on large inputs)")
     p.add_argument("--io", choices=["python"], default="python",
                    help="input parser (pure Python)")
     p.add_argument("--device", default="cuda",
@@ -89,9 +93,14 @@ def main(argv: list[str] | None = None) -> int:
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    total_bp = sum(map(len, reads))
     metrics.log("phase_end", phase="read_input",
                 wall_s=round(time.perf_counter() - t0, 4),
-                n_reads=len(reads), total_bp=sum(map(len, reads)))
+                n_reads=len(reads), total_bp=total_bp)
+    if args.counter == "hashtable" and total_bp > 5_000_000:
+        print("warning: --counter hashtable is a parity oracle and much "
+              "slower than --counter sort on an input this large",
+              file=sys.stderr)
 
     from genome_tpu_torch.assemble.pipeline import run_pipeline
     # without --resume, checkpoints are written but never read back; the

@@ -11,6 +11,7 @@ boundary, and optionally traced with torch.profiler.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 
@@ -26,11 +27,14 @@ from genome_tpu_torch.kernels.count import (count_kmers_device, filter_table,
                                             merge_tables)
 from genome_tpu_torch.kernels.extract import (extract_canonical_kmers,
                                               pack_reads)
+from genome_tpu_torch.kernels.hash_table import count_kmers_hashtable
 from genome_tpu_torch.kernels.keys import SENTINEL
+from genome_tpu_torch.kernels.sort_bucket import (count_kmers_bucket,
+                                                  default_seg)
 from genome_tpu_torch.params import AssemblyParams
 from genome_tpu_torch.utils.device import resolve_device
 
-COUNTERS = ("sort",)
+COUNTERS = ("sort", "bucket", "hashtable")
 
 
 def _pow2_at_least(n: int) -> int:
@@ -44,9 +48,17 @@ def _sync(dev: torch.device) -> None:
 
 def _check_counter(counter: str) -> None:
     if counter not in COUNTERS:
-        raise NotImplementedError(
-            f"counter {counter!r} is not ported to genome_tpu_torch yet "
-            "(see ROADMAP.md, modules to port); use counter='sort'")
+        raise ValueError(f"unknown counter {counter!r}; one of {COUNTERS}")
+
+
+def _counter_fn(counter: str, k: int, seg: int = 0):
+    """(keys, min_coverage, capacity) -> table dict for one counter name;
+    seg is the bucket counter's region size (0: its default)."""
+    if counter == "bucket":
+        return functools.partial(count_kmers_bucket, k=k, seg=seg)
+    if counter == "hashtable":
+        return count_kmers_hashtable
+    return count_kmers_device
 
 
 def extract_stream(reads, k: int, device="cuda", batch_reads: int = 65536,
@@ -81,7 +93,10 @@ def count_reads(reads, params: AssemblyParams, capacity: int | None = None,
                 device="cuda") -> dict:
     """reads -> counted k-mer table dict (count_kmers_device result).
 
-    Doubles the capacity and retries on overflow. Past
+    counter: "sort" (torch.sort + run-length encoding), "bucket"
+    (kernels/sort_bucket.py) or "hashtable" (kernels/hash_table.py; the
+    capacity is rounded up to a power of two). Doubles the capacity (and
+    the bucket region size) and retries on overflow. Past
     `max_device_kmers` windows, counting streams in chunks whose partial
     tables are merged on the device (threshold applied to the complete
     merged counts only)."""
@@ -90,10 +105,14 @@ def count_reads(reads, params: AssemblyParams, capacity: int | None = None,
     n_windows = int(keys.shape[0])
     if max_device_kmers and n_windows > max_device_kmers:
         return _count_streaming(keys, params, capacity, metrics,
-                                max_device_kmers, n_windows)
+                                max_device_kmers, n_windows, counter)
     cap = capacity or _pow2_at_least(n_windows or 1)
+    if counter == "hashtable":
+        cap = _pow2_at_least(cap)
+    seg = default_seg(n_windows or 1)
     while True:
-        res = count_kmers_device(keys, params.min_coverage, cap)
+        res = _counter_fn(counter, params.k, seg)(keys, params.min_coverage,
+                                                  cap)
         # one host round trip for both scalars
         ovf, n_unique = torch.stack([res["overflow"].to(torch.int64),
                                      res["n_unique"]]).tolist()
@@ -104,11 +123,13 @@ def count_reads(reads, params: AssemblyParams, capacity: int | None = None,
         if metrics:
             metrics.log("capacity_overflow", capacity=cap, retry=2 * cap)
         cap *= 2
+        seg *= 2
 
 
 def _count_streaming(keys, params, capacity, metrics, chunk: int,
-                     n_windows: int) -> dict:
+                     n_windows: int, counter: str = "sort") -> dict:
     """Chunked count + on-device table merges (SURVEY §3.2 streaming)."""
+    chunk_fn = _counter_fn(counter, params.k)
     cap = capacity or _pow2_at_least(min(n_windows, 4 * chunk))
     while True:
         running = None
@@ -118,7 +139,7 @@ def _count_streaming(keys, params, capacity, metrics, chunk: int,
             if part.shape[0] < chunk:
                 part = torch.cat([part, part.new_full(
                     (chunk - part.shape[0],), SENTINEL)])
-            counted = count_kmers_device(part, 1, cap)
+            counted = chunk_fn(part, 1, cap)
             running = counted if running is None else merge_tables(
                 running, counted, 1, cap)
             if bool(running["overflow"] | counted["overflow"]):

@@ -7,6 +7,12 @@ one int64 key), run heads are compacted with the stream compactor
 the coverage filter is a second compaction. SENTINEL (INT64_MAX) runs are
 dropped by value: INT64_MAX is never a canonical k-mer for k <= 31.
 
+Other sorters drop in through the `sorter` hook (kernels/mergesort.py,
+the identity after kernels/sort_bucket.py). Sorter contract: equal keys
+adjacent, non-sentinel keys ascending; SENTINEL slots may sit anywhere
+(bucket sorters leave sentinel holes between regions), and the run-length
+pass drops their runs by value.
+
 A table is a dict: table int64 [capacity] (sorted keys, 0 beyond
 n_unique), counts int32 [capacity], n_unique (0-dim int64), overflow
 (0-dim bool, set when the run count exceeds capacity — retry bigger).
@@ -41,16 +47,20 @@ def _run_heads(s):
     return first
 
 
-def count_kmers_device(keys: torch.Tensor, min_coverage, capacity: int):
+def count_kmers_device(keys: torch.Tensor, min_coverage, capacity: int,
+                       sorter=None):
     """Unweighted counting of the raw window stream (every slot counts 1).
 
     Sorts only the keys and derives run counts from head-position
-    differences (no segment-sum scatter). Returns the table dict."""
+    differences (no segment-sum scatter); a SENTINEL hole always starts
+    its own run, so this is hole-safe under the sorter contract.
+    sorter: optional keys -> sorted keys; default torch.sort. Returns the
+    table dict."""
     m = keys.shape[0]
     dev = keys.device
     if m == 0:
         return _empty(capacity, dev)
-    s = torch.sort(keys).values
+    s = torch.sort(keys).values if sorter is None else sorter(keys)
     (run_keys,), starts, n_runs, overflow = compact_flagged(
         _run_heads(s), (s,), capacity, site="count_heads")
     ridx = torch.arange(capacity, device=dev)
@@ -67,15 +77,22 @@ def count_kmers_device(keys: torch.Tensor, min_coverage, capacity: int):
 
 
 def count_weighted(keys: torch.Tensor, weights: torch.Tensor, min_coverage,
-                   capacity: int):
+                   capacity: int, sorter=None):
     """Weighted stream (weights = existing counts when merging tables) ->
-    sorted unique table, filtered at min_coverage."""
+    sorted unique table, filtered at min_coverage.
+
+    sorter: optional (keys, weights) -> sorted (keys, weights); default
+    torch.sort. `overflow` counts sentinel runs too, as in JAX."""
     m = keys.shape[0]
     dev = keys.device
     if m == 0:
         return _empty(capacity, dev)
-    s, perm = torch.sort(keys)
-    sw = weights[perm].to(torch.int64)
+    if sorter is None:
+        s, perm = torch.sort(keys)
+        sw = weights[perm].to(torch.int64)
+    else:
+        s, sw = sorter(keys, weights)
+        sw = sw.to(torch.int64)
     first = _run_heads(s)
     run_id = torch.cumsum(first, 0) - 1
     n_runs = first.sum()

@@ -1,6 +1,9 @@
 """k-mer counting in the port against the JAX package: table, counts,
-n_unique and overflow, exactly; also count_weighted, merge_tables and
-filter_table, fed through genome_tpu_torch.convert."""
+n_unique and overflow, exactly; also count_weighted, merge_tables,
+filter_table and the merge-sort sorter hook, fed through
+genome_tpu_torch.convert."""
+
+from functools import partial
 
 import numpy as np
 import pytest
@@ -10,9 +13,11 @@ import jax.numpy as jnp
 
 from genome_tpu.kernels import count as jcount
 from genome_tpu.kernels.extract import extract_canonical_kmers as jax_extract
+from genome_tpu.kernels.mergesort import sort_pairs_merge as jax_merge_sort
 from genome_tpu_torch import convert
 from genome_tpu_torch.io import random_genome, simulate_reads
 from genome_tpu_torch.kernels import count
+from genome_tpu_torch.kernels.mergesort import sort_pairs_merge
 from genome_tpu_torch.kernels.extract import pack_reads
 
 
@@ -73,6 +78,20 @@ def test_merge_and_filter_tables_match_jax():
     one = count.count_kmers_device(convert.keys_from_pair(jh, jl, "cpu"), 2,
                                    cap)
     assert torch.equal(one["table"], count.filter_table(pm, 2)["table"])
+
+
+def test_count_with_merge_sorter_matches_jax():
+    jh, jl = _stream(seed=3, glen=500)
+    pad = np.full(-jh.size % 512, 0xFFFFFFFF, np.uint32)
+    jh, jl = np.concatenate([jh, pad]), np.concatenate([jl, pad])
+    want = jcount.count_kmers_device(
+        jnp.asarray(jh), jnp.asarray(jl), 2, 1 << 13,
+        sorter=partial(jax_merge_sort, block=512, interpret=True))
+    got = count.count_kmers_device(convert.keys_from_pair(jh, jl, "cpu"), 2,
+                                   1 << 13,
+                                   sorter=partial(sort_pairs_merge, block=512))
+    _assert_table_equal(got, want)
+    assert int(got["n_unique"]) > 0
 
 
 def test_count_empty_stream():

@@ -1,5 +1,5 @@
-"""The `cuda` lane: the port's CUDA kernel and its main path on the card,
-held against the plain versions on the same inputs (exact: integer
+"""The `cuda` lane: the port's CUDA kernels and its main path on the
+card, held against the plain versions on the same inputs (exact: integer
 outputs). Skips without a card; the fixture decides, never import time.
 
 On a machine with the card:
@@ -14,7 +14,9 @@ import torch
 
 from genome_tpu_torch.assemble.pipeline import run_pipeline
 from genome_tpu_torch.io import random_genome, simulate_reads
-from genome_tpu_torch.kernels import compact
+from genome_tpu_torch.kernels import bitonic, compact
+from genome_tpu_torch.kernels.keys import SENTINEL
+from genome_tpu_torch.kernels.mergesort import sort_pairs_merge
 from genome_tpu_torch.params import AssemblyParams
 
 
@@ -59,3 +61,55 @@ def test_pipeline_on_card_equals_cpu(cuda_device):
     assert got == run_pipeline(reads, params, device="cpu")["contigs"]
     assert all(compact.LAUNCHES[s] > 0 for s in compact.SITES
                if s != "tails")
+
+
+def _bitonic_case(dev, block, nblocks, dtypes, fill, seed):
+    """Arrays for the bitonic kernels: keys by `fill` (random, ties,
+    equal, sentinel rows), payloads random."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    n = block * nblocks
+    hi = {"random": 2**31 - 1, "ties": 3, "equal": 1, "sentinel": 2**31 - 1}
+    out = []
+    for dt in dtypes:
+        a = torch.randint(0, hi[fill], (n,), generator=g, device=dev,
+                          dtype=dt)
+        if fill == "sentinel" and dt == torch.int64:
+            a[::5] = SENTINEL
+        out.append(a)
+    return tuple(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,nblocks,dtypes,num_keys,fill", [
+    (256, 8, (torch.int64,), 1, "random"),
+    ("tile", 3, (torch.int64,), 1, "random"),       # block == TILE
+    ("4tile", 2, (torch.int64, torch.int32), 1, "ties"),  # block > TILE
+    (65536, 1, (torch.int64,), 1, "sentinel"),       # one block
+    (1024, 4, (torch.int32, torch.int64, torch.int32, torch.int64), 2,
+     "ties"),                                        # 2 keys + payloads
+    (512, 4, (torch.int64, torch.int32), 1, "equal"),
+    (2048, 2, (torch.int32,) * 2, 1, "random")])     # block < TILE
+def test_bitonic_kernels_match_plain_on_card(cuda_device, block, nblocks,
+                                             dtypes, num_keys, fill):
+    probe = (torch.zeros(1, dtype=dt) for dt in dtypes)
+    tile = bitonic.tile_size(tuple(probe), 1 << 30)
+    block = {"tile": tile, "4tile": 4 * tile}.get(block, block)
+    arrays = _bitonic_case(cuda_device, block, nblocks, dtypes, fill, block)
+    for fn, ref in ((bitonic.sort_blocks, bitonic.sort_blocks_ref),
+                    (bitonic.merge_blocks, bitonic.merge_blocks_ref)):
+        got = fn(arrays, num_keys, block)
+        want = ref(arrays, num_keys, block)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sort_pairs_merge_on_card_equals_torch_sort(cuda_device):
+    (keys,) = _bitonic_case(cuda_device, 4096, 11, (torch.int64,),
+                            "sentinel", 1)
+    bitonic.reset_launches()
+    got = sort_pairs_merge(keys, block=4096)
+    assert torch.equal(got, torch.sort(keys).values)
+    assert dict(bitonic.LAUNCHES) == {"sort_blocks": 1, "merge_blocks": 4}

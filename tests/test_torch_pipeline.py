@@ -94,8 +94,25 @@ def test_cuda_device_raises_without_card():
 
 def test_unported_counter_raises():
     reads, params = _case("planted")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_pipeline(reads, params, device="cpu", counter="bucket")
+    with pytest.raises(ValueError, match="unknown counter"):
+        run_pipeline(reads, params, device="cpu", counter="radix")
+
+
+@pytest.mark.parametrize("counter", ["bucket", "hashtable"])
+def test_alternative_counters_give_sort_contigs(counter):
+    reads, params = _case("planted")
+    want = run_pipeline(reads, params, device="cpu")["contigs"]
+    assert want
+    assert run_pipeline(reads, params, device="cpu",
+                        counter=counter)["contigs"] == want
+
+
+def test_hashtable_streaming_count_with_retry():
+    reads, params = _case("planted")
+    want = run_pipeline(reads, params, device="cpu")["contigs"]
+    res = run_pipeline(reads, params, device="cpu", counter="hashtable",
+                       max_device_kmers=1000, capacity=256)
+    assert res["contigs"] == want
 
 
 def test_count_phase_reports_windows():
