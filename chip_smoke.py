@@ -15,7 +15,13 @@ Phases (any failure exits non-zero and prints no result line):
      at block 256, == TILE, > TILE, one block, two keys with payloads,
      all-equal keys, heavy ties, INT64_MAX rows, and at the count site
      (the legacy window stream, 1350 blocks of 65536); sort_pairs_merge
-     whole against torch.sort on that stream;
+     whole against torch.sort on that stream; digit_histogram and
+     partition_by_bucket on their own path over the same stream (the
+     (10, 32) histogram sizes a 1025-way partition of (top word, low
+     word), the sentinels in the last bucket), then at edge cases (n = 0,
+     one bucket, B = 1, out-of-range bids, overflow, int64 payloads,
+     nbits 16, sentinels at bit 63) and the histogram at (10, 32),
+     (8, 0), (8, 56) and (10, 32) on the sorted stream;
   3. end to end on the E. coli-scale benchmark workload (4.6 Mbp, 100 bp
      reads, 24x, k = 21), the contig SHAs equal to the golden oracle's
      cached in bench_golden_cache.json:
@@ -367,6 +373,215 @@ def phase_bitonic(keys, gen) -> dict:
     return rows
 
 
+def _partition_compare(bid, rem, B, cap) -> float:
+    """partition_by_bucket vs its plain version on the card: totals and
+    overflow exactly, and out[b, :min(totals[b], cap)]; returns max abs
+    err. The synchronize surfaces any fault of an out-of-bounds write."""
+    import torch
+    from genome_tpu_torch.kernels.partition import (partition_by_bucket,
+                                                    partition_by_bucket_ref)
+    out, totals, ovf = partition_by_bucket(bid, rem, B, cap)
+    rout, rtotals, rovf = partition_by_bucket_ref(bid, rem, B, cap)
+    torch.cuda.synchronize()
+    kept = torch.arange(cap, device=out.device) \
+        < totals.clamp(max=cap).unsqueeze(1)
+    err = int((totals - rtotals).abs().max())
+    if kept.any():
+        err = max(err, int((out[kept].to(torch.int64)
+                            - rout[kept].to(torch.int64)).abs().max()))
+    if err or bool(ovf) != bool(rovf):
+        raise AssertionError(f"partition_by_bucket != plain version at n="
+                             f"{bid.numel()} B={B} cap={cap} (max abs err "
+                             f"{err}, overflow {bool(ovf)}/{bool(rovf)})")
+    return float(err)
+
+
+def _hist_compare(keys, nbits, shift) -> float:
+    import torch
+    from genome_tpu_torch.kernels.hist import (digit_histogram,
+                                               digit_histogram_ref)
+    got = digit_histogram(keys, nbits, shift)
+    want = digit_histogram_ref(keys, nbits, shift)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    if err or int(got.sum()) != keys.numel():
+        raise AssertionError(f"digit_histogram != plain version at n="
+                             f"{keys.numel()} ({nbits}, {shift}) (max abs "
+                             f"err {err})")
+    return float(err)
+
+
+def _hist_partition_edges(gen) -> None:
+    """Both kernels against their plain versions at edge cases."""
+    import torch
+    from genome_tpu_torch.kernels.keys import SENTINEL
+    i32, i64 = torch.int32, torch.int64
+
+    def keys(n, fill):
+        k = torch.randint(0, 1 << 42, (n,), device="cuda", generator=gen)
+        if fill == "equal":
+            k[:] = 12345
+        elif fill == "sorted":
+            k = torch.sort(k).values
+        elif fill == "sentinel":
+            k[::7] = SENTINEL - torch.randint(0, 3000, k[::7].shape,
+                                              device="cuda", generator=gen)
+        return k
+
+    hedge = [(0, 8, 0, "random"), (5, 8, 0, "random"),
+             (100_001, 10, 32, "misaligned"), (1_000_000, 8, 0, "equal"),
+             (1_000_000, 8, 56, "sentinel"), (1_000_000, 1, 63, "sentinel"),
+             (1_000_000, 13, 29, "random"), (1_000_000, 16, 0, "random"),
+             (1_000_000, 16, 26, "sorted")]
+    for n, nbits, shift, fill in hedge:
+        k = keys(n + 1, "random")[1:] if fill == "misaligned" \
+            else keys(n, fill)
+        _hist_compare(k, nbits, shift)
+    print(f"[hist] {len(hedge)} edge cases equal the plain version (n = 0, "
+          "5, odd and misaligned; all-equal and sorted keys; sentinels at "
+          "(8, 56) and (1, 63); nbits 13 and 16)", flush=True)
+
+    pedge = [(0, 4, 1024, "random", i32, i32),
+             (1000, 8, 2048, "random", i32, i32),
+             (200_000, 5, 201_728, "one", i32, i32),
+             (200_000, 1, 201_728, "random", i32, i64),
+             (300_000, 4, 100_352, "out of range", i32, i32),
+             (300_000, 4, 8192, "hot0", i32, i32),
+             (500_000, 1025, 2048, "random", i64, i64),
+             (1_000_000, 1025, 4096, "sorted", i32, i32)]
+    for n, B, cap, fill, bdt, rdt in pedge:
+        lo, hi = (-3, B + 3) if fill == "out of range" else (0, B)
+        bid = torch.randint(lo, hi, (n,), device="cuda", generator=gen,
+                            dtype=bdt)
+        if fill == "one":
+            bid[:] = B - 1
+        elif fill == "hot0":  # bucket 0 overflows into nothing: bucket 1's
+            # region is compared in full
+            bid[torch.rand(n, device="cuda", generator=gen) < 0.9] = 0
+        elif fill == "sorted":
+            bid = torch.sort(bid).values
+        rem = torch.randint(-2**31, 2**31 - 1, (n,), device="cuda",
+                            generator=gen, dtype=rdt)
+        _partition_compare(bid, rem, B, cap)
+    print(f"[partition] {len(pedge)} edge cases equal the plain version "
+          "(n = 0, n < one tile, one bucket, B = 1, out-of-range bids, an "
+          "overflowing bucket, int64 bids and payloads, sorted bids)",
+          flush=True)
+
+
+def _device_split(label, fn, reps: int = 3) -> None:
+    """Device time per kernel of `fn` under torch.profiler, per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA")
+          and e.self_device_time_total > 0]
+    ev.sort(key=lambda e: -e.self_device_time_total)
+    print(f"[{label}] device time per call by kernel: " + "; ".join(
+        f"{e.key[:40]} {e.self_device_time_total / 1e3 / reps:.4f} ms"
+        for e in ev[:6]), flush=True)
+
+
+def phase_hist_partition(keys, gen) -> dict:
+    """digit_histogram and partition_by_bucket on the count stream (`keys`:
+    the legacy window stream, sentinels included). Their path is their own
+    entry points, driven as a user would: the (10, 32) histogram of the
+    keys sizes a 1025-way partition of (bucket, low word), with the
+    sentinels in the last bucket. Then edge cases and each shape checked
+    against the plain version and timed. Returns {kernel name: row}."""
+    import torch
+    from genome_tpu_torch.kernels import hist, partition
+    from genome_tpu_torch.kernels.hist import (digit_histogram,
+                                               digit_histogram_ref,
+                                               digits_ref)
+    from genome_tpu_torch.kernels.keys import INT64_MAX
+    from genome_tpu_torch.kernels.partition import (CHUNK,
+                                                    partition_by_bucket,
+                                                    partition_by_bucket_ref)
+    n = keys.numel()
+    B = 1025
+    n_sent = int((keys > INT64_MAX - (1 << 32)).sum())
+    hist.reset_launches()
+    partition.reset_launches()
+    h = digit_histogram(keys, 10, 32)
+    bid = torch.clamp(keys >> 32, max=B - 1).to(torch.int32)
+    rem = (keys << 32 >> 32).to(torch.int32)  # the low word, bit for bit
+    cap = (-(-int(h.max()) // CHUNK) + 1) * CHUNK
+    out, totals, ovf = partition_by_bucket(bid, rem, B, cap)
+    torch.cuda.synchronize()
+    launches = {**hist.LAUNCHES, **partition.LAUNCHES}
+    if launches != {"digit_histogram": 1, "partition_by_bucket": 1}:
+        raise AssertionError(f"hist/partition path launches {launches}")
+    if bool(ovf) or int(totals[B - 1]) != n_sent \
+            or int(totals.sum()) != n:
+        raise AssertionError(f"partition of the count stream: overflow "
+                             f"{bool(ovf)}, sentinel bucket "
+                             f"{int(totals[B - 1])} of {n_sent}")
+    skew = float(h.max()) / (n / 1024)
+    print(f"[hist] (10, 32) of the count stream: n={n} sentinels={n_sent} "
+          f"max bin={int(h.max())} (bin {int(h.argmax())}) skew max/avg="
+          f"{skew:.4f}; partition B={B} bucket_cap={cap} largest total="
+          f"{int(totals.max())} launches={json.dumps(launches)}", flush=True)
+    del out, totals
+    _hist_partition_edges(gen)
+
+    srt = torch.sort(keys).values
+    hrows = []
+    for label, x, nbits, shift in [("(10, 32)", keys, 10, 32),
+                                   ("(8, 0)", keys, 8, 0),
+                                   ("(8, 56)", keys, 8, 56),
+                                   ("(10, 32) sorted", srt, 10, 32)]:
+        err = _hist_compare(x, nbits, shift)
+        if nbits == 8 and shift == 56 and \
+                int(digit_histogram(x, 8, 56)[255]) != n_sent:
+            raise AssertionError("(8, 56): the sentinels are not in bin 255")
+        ms = _time_ms(lambda: digit_histogram(x, nbits, shift))
+        plain = _time_ms(lambda: digit_histogram_ref(x, nbits, shift), reps=5)
+        d = digits_ref(x, nbits, shift)
+        lib = _time_ms(lambda: torch.bincount(d, minlength=1 << nbits))
+        del d
+        bound = (8 * n + (8 << nbits)) / HBM_BYTES_PER_S * 1e3
+        hrows.append(dict(input=label, n=n, nbits=nbits, shift=shift,
+                          max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bound, bound_by="bytes", library_ms=lib))
+        print(f"[hist] {label:16s} n={n} kernel={ms:8.4f} ms plain="
+              f"{plain:8.3f} ms bound={bound:7.4f} ms bincount of the "
+              f"digits={lib:8.4f} ms", flush=True)
+    del srt
+    print(f"[hist] contention: sorted/unsorted (10, 32) kernel time = "
+          f"{hrows[3]['ms'] / hrows[0]['ms']:.3f}", flush=True)
+
+    err = _partition_compare(bid, rem, B, cap)
+    ms = _time_ms(lambda: partition_by_bucket(bid, rem, B, cap), reps=10)
+    plain = _time_ms(lambda: partition_by_bucket_ref(bid, rem, B, cap),
+                     reps=3)
+
+    def library():
+        _, idx = torch.sort(bid, stable=True)
+        return rem[idx], torch.bincount(bid, minlength=B)
+    lib = _time_ms(library, reps=5)
+    nbytes = n * (bid.element_size() + 2 * rem.element_size()) + 8 * B
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    prow = dict(n=n, num_buckets=B, bucket_cap=cap, max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                library_ms=lib)
+    print(f"[partition] n={n} B={B} cap={cap} kernel={ms:8.4f} ms plain="
+          f"{plain:8.3f} ms bound={bound:7.4f} ms stable sort + gather + "
+          f"bincount={lib:8.4f} ms", flush=True)
+    _device_split("partition", lambda: partition_by_bucket(bid, rem, B, cap))
+    del bid, rem
+    torch.cuda.empty_cache()
+    return {"launches": launches, "skew": skew,
+            "digit_histogram": dict(hrows[0], shapes=hrows),
+            "partition_by_bucket": prow}
+
+
 def phase_sorter(w, params, golden) -> dict:
     """The count layer's sorter hook on the card: count the legacy stream
     with sort_pairs_merge, hold the table against the default sorter's,
@@ -476,11 +691,13 @@ def main() -> int:
         ("compact_ids", lambda: _rand(2 * cap2, 0.01, (), gen), 1 << 18),
     ]
     rows = phase_kernels(shapes, gen)
-    keys = extract_stream(legacy["err"], params.k, "cuda")
-    keys = torch.cat([keys, keys.new_full((-keys.numel() % BLOCK,),
-                                          SENTINEL)])
+    stream = extract_stream(legacy["err"], params.k, "cuda")
+    keys = torch.cat([stream, stream.new_full((-stream.numel() % BLOCK,),
+                                              SENTINEL)])
     brows = phase_bitonic(keys, gen)
     del keys
+    hp = phase_hist_partition(stream, gen)
+    del stream
 
     # ---- phase 3: end to end, golden SHA parity ----
     here = os.path.dirname(os.path.abspath(__file__))
@@ -521,6 +738,22 @@ def main() -> int:
             "library_ms": r["library_ms"], "matched_plain": True,
             "shapes": brows[name]}
 
+    def hp_entry(name, src, replaces):
+        r = hp[name]  # the count-stream shape of its own path
+        return {
+            "name": name, "route": "cuda",
+            "source": f"genome_tpu_torch/kernels/csrc/{src}.cu",
+            "replaces": f"genome_tpu/kernels/{replaces}",
+            # wrapper calls on its path; digit_histogram is one __global__
+            # launch, partition_by_bucket three
+            "launches": hp["launches"][name],
+            "max_abs_err": max(x["max_abs_err"]
+                               for x in r.get("shapes", [r])),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "matched_plain": True,
+            "shapes": r.get("shapes", [r])}
+
     summary = {"kernels": [{
         "name": "compact_flagged", "route": "cuda",
         "source": "genome_tpu_torch/kernels/csrc/compact.cu",
@@ -532,8 +765,11 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "matched_plain": True,
         "sites": launches, "shapes": rows},
-        bitonic_entry("sort_blocks", 86), bitonic_entry("merge_blocks", 143)],
-        "sort_pairs_merge": brows["sort_pairs_merge"]}
+        bitonic_entry("sort_blocks", 86), bitonic_entry("merge_blocks", 143),
+        hp_entry("digit_histogram", "hist", "pallas_hist.py:74"),
+        hp_entry("partition_by_bucket", "partition", "partition.py:193")],
+        "sort_pairs_merge": brows["sort_pairs_merge"],
+        "count_stream_skew": hp["skew"]}
     print(smi)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

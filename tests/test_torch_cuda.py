@@ -14,7 +14,7 @@ import torch
 
 from genome_tpu_torch.assemble.pipeline import run_pipeline
 from genome_tpu_torch.io import random_genome, simulate_reads
-from genome_tpu_torch.kernels import bitonic, compact
+from genome_tpu_torch.kernels import bitonic, compact, hist, partition
 from genome_tpu_torch.kernels.keys import SENTINEL
 from genome_tpu_torch.kernels.mergesort import sort_pairs_merge
 from genome_tpu_torch.params import AssemblyParams
@@ -103,6 +103,88 @@ def test_bitonic_kernels_match_plain_on_card(cuda_device, block, nblocks,
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+def _hist_keys(dev, n, fill, seed):
+    """int64 keys below 2^42 by `fill` (random, sorted, equal), every
+    seventh a sentinel or near-sentinel key for `sentinel`."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    keys = torch.randint(0, 1 << 42, (n,), generator=g, device=dev)
+    if fill == "sorted":
+        keys = torch.sort(keys).values
+    elif fill == "equal":
+        keys[:] = 12345
+    elif fill == "sentinel":
+        keys[::7] = SENTINEL - torch.randint(0, 3000, keys[::7].shape,
+                                             generator=g, device=dev)
+    return keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nbits,shift,fill,offset", [
+    (0, 8, 0, "random", 0), (5, 8, 0, "random", 0),
+    (1, 4, 0, "random", 1),                 # one key, misaligned
+    (100_001, 10, 32, "random", 1),         # odd length, misaligned
+    (3_000_000, 10, 32, "sorted", 0),       # whole warps in one bin
+    (1_000_000, 8, 0, "equal", 0),
+    (1_000_000, 8, 56, "sentinel", 0),      # the digit covers bit 63
+    (1_000_000, 1, 63, "sentinel", 0),
+    (1_000_000, 13, 29, "random", 0),       # the largest shared histogram
+    (1_000_000, 16, 0, "random", 0),        # bins in device memory
+    (1_000_000, 16, 26, "sorted", 0)])
+def test_hist_kernel_matches_plain_on_card(cuda_device, n, nbits, shift,
+                                           fill, offset):
+    keys = _hist_keys(cuda_device, n + offset, fill, n)[offset:]
+    hist.reset_launches()
+    got = hist.digit_histogram(keys, nbits, shift)
+    want = hist.digit_histogram_ref(keys, nbits, shift)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got.sum()) == n
+    assert hist.LAUNCHES["digit_histogram"] == (1 if n else 0)
+
+
+def _assert_partition_equal(got, want, cap):
+    out, totals, ovf = got
+    rout, rtotals, rovf = want
+    assert torch.equal(totals, rtotals) and bool(ovf) == bool(rovf)
+    kept = torch.arange(cap, device=out.device) \
+        < totals.clamp(max=cap).unsqueeze(1)
+    assert torch.equal(out[kept], rout[kept])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B,cap,bids,dtypes", [
+    (0, 4, 1024, "random", (torch.int32, torch.int32)),
+    (1000, 8, 2048, "random", (torch.int32, torch.int32)),  # < one tile
+    (200_000, 5, 201_728, "one", (torch.int32, torch.int32)),
+    (200_000, 1, 201_728, "random", (torch.int32, torch.int64)),
+    (300_000, 4, 100_352, "out of range", (torch.int32, torch.int32)),
+    (300_000, 4, 8192, "hot0", (torch.int32, torch.int32)),  # overflow
+    (500_000, 1025, 2048, "random", (torch.int64, torch.int64)),
+    (1_000_000, 1025, 4096, "sorted", (torch.int32, torch.int32))])
+def test_partition_kernel_matches_plain_on_card(cuda_device, n, B, cap, bids,
+                                                dtypes):
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(n + B)
+    lo, hi = (-3, B + 3) if bids == "out of range" else (0, B)
+    bid = torch.randint(lo, hi, (n,), generator=g, device=cuda_device,
+                        dtype=dtypes[0])
+    if bids == "one":
+        bid[:] = B - 1
+    elif bids == "hot0":
+        bid[torch.rand(n, generator=g, device=cuda_device) < 0.9] = 0
+    elif bids == "sorted":
+        bid = torch.sort(bid).values
+    rem = torch.randint(-2**31, 2**31 - 1, (n,), generator=g,
+                        device=cuda_device, dtype=dtypes[1])
+    partition.reset_launches()
+    got = partition.partition_by_bucket(bid, rem, B, cap)
+    want = partition.partition_by_bucket_ref(bid, rem, B, cap)
+    torch.cuda.synchronize()  # an out-of-bounds write faults here
+    _assert_partition_equal(got, want, cap)
+    assert bool(got[2]) == (bids == "hot0")
+    assert partition.LAUNCHES["partition_by_bucket"] == (1 if n else 0)
 
 
 @pytest.mark.cuda
