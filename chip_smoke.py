@@ -12,11 +12,14 @@ Phases (any failure exits non-zero and prints no result line):
      CUDA events beside its bound, the plain version and one library call
      that computes the same function (`library_ms`; the port never calls
      it): compact_flagged at its four sites; sort_blocks and merge_blocks
-     at block 256, == TILE, > TILE, one block, two keys with payloads,
-     all-equal keys, heavy ties, INT64_MAX rows, and at the count site
-     (the legacy window stream, 1350 blocks of 65536); sort_pairs_merge
-     whole against torch.sort on that stream; digit_histogram and
-     partition_by_bucket on their own path over the same stream (the
+     at every block size 2^8 ... 2^17 (one int64 key), == TILE, > TILE,
+     one block, two keys with payloads, two int64 keys with two payloads,
+     three arrays, all-equal keys, heavy ties, INT64_MAX rows, and at the
+     count site (the legacy window stream, 1350 blocks of 65536), with one
+     call of each split by __global__ launch (torch.profiler);
+     sort_pairs_merge whole against torch.sort on that stream;
+     digit_histogram and partition_by_bucket on their own path over the
+     same stream (the
      (10, 32) histogram sizes a 1025-way partition of (top word, low
      word), the sentinels in the last bucket), then at edge cases (n = 0,
      one bucket, B = 1, out-of-range bids, overflow, int64 payloads,
@@ -297,33 +300,69 @@ def _network_stages(block: int, merge_only: bool) -> int:
     return lg if merge_only else lg * (lg + 1) // 2
 
 
+def _launch_split(label, fn, reps: int = 3) -> list[dict]:
+    """Device time of each __global__ launch of one call of `fn`, in launch
+    order (the mean over `reps` profiled calls after a warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if str(e.device_type).endswith("CUDA")
+                 and e.time_range.elapsed_us() > 0),
+                key=lambda e: e.time_range.start)
+    per = len(ev) // reps
+    split = [dict(kernel=ev[i].name, ms=sum(
+        ev[i + c * per].time_range.elapsed_us() for c in range(reps))
+        / reps / 1e3) for i in range(per)]
+    print(f"[{label}] device time per __global__ launch, in order "
+          f"({len(ev)} launches in {reps} calls): " + "; ".join(
+              f"{s['kernel'][:48]} {s['ms']:.4f} ms" for s in split)
+          + f"; total {sum(s['ms'] for s in split):.4f} ms", flush=True)
+    return split
+
+
 def phase_bitonic(keys, gen) -> dict:
     """sort_blocks and merge_blocks against their plain versions at edge
     cases and at the count site (`keys`: the legacy window stream, padded
-    to whole blocks), each count-site shape timed; then sort_pairs_merge
-    whole against torch.sort. Returns {kernel name: [rows]} and the
-    sort_pairs_merge row under "sort_pairs_merge"."""
+    to whole blocks), each count-site shape timed and one call of each
+    split by __global__ launch; then sort_pairs_merge whole against
+    torch.sort. Returns {kernel name: [rows]}, the sort_pairs_merge row
+    under "sort_pairs_merge" and the splits under "split"."""
     import torch
     from genome_tpu_torch.kernels import bitonic
     from genome_tpu_torch.kernels.mergesort import sort_pairs_merge
     i32, i64 = torch.int32, torch.int64
-    tile = bitonic.tile_size((keys,), 1 << 30)
-    tile2 = bitonic.tile_size((keys, keys.to(i32)), 1 << 30)
-    edge = [("block 256", 256, 8, (i64,), 1, "random"),
-            ("block == TILE", tile, 3, (i64,), 1, "random"),
-            ("block > TILE", 4 * tile2, 2, (i64, i32), 1, "ties"),
-            ("one block", BLOCK, 1, (i64,), 1, "random"),
-            ("2 keys + payloads", 1024, 4, (i32, i64, i32, i64), 2, "ties"),
-            ("all-equal keys", 512, 4, (i64, i32), 1, "equal"),
-            ("heavy ties", 4096, 4, (i64, i32), 1, "ties"),
-            ("INT64_MAX rows", BLOCK, 2, (i64, i64), 1, "sentinel")]
+    probe = [torch.zeros(1, dtype=dt, device="cuda") for dt in (i64, i32)]
+    tile = bitonic.tile_size(probe[:1], 1 << 30)
+    tile2 = bitonic.tile_size(probe, 1 << 30)
+    tile4 = bitonic.tile_size(probe * 2, 1 << 30)
+    # one int64 key at every block size from 2^8 to 2^17: the in-thread,
+    # in-warp, cross-warp and cross-tile stages of the network
+    edge = [(f"block 2^{b}", 1 << b, 2, (i64,), 1, "random")
+            for b in range(8, 18)]
+    edge += [("block 256", 256, 8, (i64,), 1, "random"),
+             ("block == TILE", tile, 3, (i64,), 1, "random"),
+             ("block > TILE", 4 * tile2, 2, (i64, i32), 1, "ties"),
+             ("one block", BLOCK, 1, (i64,), 1, "random"),
+             ("2 keys + payloads", 1024, 4, (i32, i64, i32, i64), 2, "ties"),
+             ("2 int64 keys + 2 payloads", 4 * tile4, 2, (i64, i64, i32, i64),
+              2, "ties"),
+             ("3 arrays", 4 * tile4, 2, (i64, i32, i64), 1, "ties"),
+             ("all-equal keys", 512, 4, (i64, i32), 1, "equal"),
+             ("heavy ties", 4096, 4, (i64, i32), 1, "ties"),
+             ("INT64_MAX rows", BLOCK, 2, (i64, i64), 1, "sentinel")]
     for label, block, nb, dts, nk, fill in edge:
         arrays = _bitonic_inputs(block, nb, dts, fill, gen)
         for name in ("sort_blocks", "merge_blocks"):
             _bitonic_compare(name, arrays, nk, block)
-    print(f"[bitonic] TILE = {tile} (int64 keys), {tile2} (int64 + int32); "
-          f"{len(edge)} edge cases x 2 kernels equal the plain version: "
-          + ", ".join(e[0] for e in edge), flush=True)
+    print(f"[bitonic] TILE = {tile} (int64 keys), {tile2} (int64 + int32), "
+          f"{tile4} (four arrays); {len(edge)} edge cases x 2 kernels equal "
+          "the plain version: " + ", ".join(e[0] for e in edge), flush=True)
 
     half = torch.sort(keys.view(-1, BLOCK // 2), dim=1).values.view(
         -1, 2, BLOCK // 2)
@@ -333,7 +372,7 @@ def phase_bitonic(keys, gen) -> dict:
                   [half[:, :1], half[:, 1:].flip(-1)], 1).reshape(-1)),
               ("merge_blocks", "sorted", srt)]
     del half
-    rows: dict = {"sort_blocks": [], "merge_blocks": []}
+    rows: dict = {"sort_blocks": [], "merge_blocks": [], "split": {}}
     for name, label, x in shapes:
         fn = getattr(bitonic, name)
         ref = getattr(bitonic, name + "_ref")
@@ -356,6 +395,9 @@ def phase_bitonic(keys, gen) -> dict:
               f"plain={plain:9.3f} ms bound={row['bound_ms']:7.4f} ms "
               f"({row['bound_by']}; bytes {bytes_ms:.4f}, ops {ops_ms:.4f}) "
               f"library={lib:8.3f} ms", flush=True)
+        if not rows["split"].get(name):
+            rows["split"][name] = _launch_split(
+                f"bitonic {name} {label}", lambda: fn((x,), 1, BLOCK))
     del srt, shapes
 
     got = sort_pairs_merge(keys)
@@ -729,8 +771,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "genome_tpu_torch/kernels/csrc/bitonic.cu",
             "replaces": f"genome_tpu/kernels/bitonic.py:{line}",
-            # wrapper calls on the sorter path; each is 1-6 __global__
-            # launches at block 65536
+            # wrapper calls on the sorter path; each is 6 (sort) or 3
+            # (merge) __global__ launches at block 65536
             "launches": sorter["launches"][name],
             "max_abs_err": max(x["max_abs_err"] for x in brows[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -769,6 +811,7 @@ def main() -> int:
         hp_entry("digit_histogram", "hist", "pallas_hist.py:74"),
         hp_entry("partition_by_bucket", "partition", "partition.py:193")],
         "sort_pairs_merge": brows["sort_pairs_merge"],
+        "bitonic_split": brows["split"],
         "count_stream_skew": hp["skew"]}
     print(smi)
     print(json.dumps(summary))

@@ -6,7 +6,7 @@ Each contiguous `block`-element run of a tuple of arrays is sorted
 ascending, lexicographically on the first `num_keys` arrays, the rest
 carried. `merge_blocks` runs only the last phase (distances block/2 ... 1)
 and so sorts runs that are already bitonic. On a CUDA tensor the wrapper
-launches the hand-written kernels in `csrc/bitonic.cu` (a shared-memory
+launches the hand-written kernels in `csrc/bitonic.cu` (a register-resident
 tile for the stages at distances below the tile, one grid-wide launch per
 stage above it); on a CPU tensor it runs the plain versions
 `sort_blocks_ref` / `merge_blocks_ref`. There is no fallback between the
@@ -20,9 +20,15 @@ among equal keys included. Comparisons are signed (the JAX kernels compare
 uint32): feed values below 2^31 as int32, or a (hi, lo) pair as one int64
 key.
 
-What bounds it on an H100: the log2(block)^2 / 2 compare-exchange stages,
-each a trip through shared or device memory; see PERF.md for its time
-beside the one-read, one-write bandwidth bound.
+What bounds it on an H100: the log2(block)^2 / 2 compare-exchange stages.
+The tile kernel holds a tile of every array in registers, widened to
+int64, and runs the stages below the tile there: within a thread's
+registers, across lanes by warp shuffles, and across warps after a
+re-layout through shared memory, twice per phase that reaches the warp
+bits instead of a shared-memory trip and a barrier per stage. Each stage
+at or above the tile is still one grid-wide trip through device memory.
+See PERF.md for its time beside the one-read, one-write bandwidth bound
+and the split by launch.
 """
 
 from __future__ import annotations
@@ -127,9 +133,9 @@ def _lib():
 
 
 def tile_size(arrays, block: int) -> int:
-    """The shared-memory tile the CUDA kernels use for these arrays."""
-    return int(_lib().bitonic_tile(sum(a.element_size() for a in arrays),
-                                   block))
+    """The tile the CUDA kernels use for these arrays: min(block, TILE),
+    TILE 16384 for one array, 8192 for two, 4096 for three or four."""
+    return int(_lib().bitonic_tile(len(arrays), block))
 
 
 def _launch(name: str, arrays: tuple, num_keys: int, block: int,

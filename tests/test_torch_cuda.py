@@ -89,7 +89,13 @@ def _bitonic_case(dev, block, nblocks, dtypes, fill, seed):
     (1024, 4, (torch.int32, torch.int64, torch.int32, torch.int64), 2,
      "ties"),                                        # 2 keys + payloads
     (512, 4, (torch.int64, torch.int32), 1, "equal"),
-    (2048, 2, (torch.int32,) * 2, 1, "random")])     # block < TILE
+    (2048, 2, (torch.int32,) * 2, 1, "random"),      # block < TILE
+    ("4tile", 2, (torch.int64, torch.int32, torch.int64), 1, "ties"),
+    ("4tile", 2, (torch.int64, torch.int64, torch.int32, torch.int64), 2,
+     "ties")]                                        # 2 int64 keys + payloads
+    # one int64 key at every block size from 2^8 to 2^17: the in-thread,
+    # in-warp, cross-warp and cross-tile stages of the network
+    + [(1 << b, 2, (torch.int64,), 1, "random") for b in range(8, 18)])
 def test_bitonic_kernels_match_plain_on_card(cuda_device, block, nblocks,
                                              dtypes, num_keys, fill):
     probe = (torch.zeros(1, dtype=dt) for dt in dtypes)
