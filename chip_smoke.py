@@ -11,7 +11,12 @@ Phases (any failure exits non-zero and prints no result line):
      at the main path's shapes and at edge cases, each shape timed with
      CUDA events beside its bound, the plain version and one library call
      that computes the same function (`library_ms`; the port never calls
-     it): compact_flagged at its four sites; sort_blocks and merge_blocks
+     it): compact_flagged at its four sites and at edge cases (views at
+     offsets 1, 3 and 8, n one past a tile and one past a 16-flag vector,
+     a capacity cut mid-tile, every flag set at 2^23), one call at
+     count_heads and one at compact_ids split by kernel (torch.profiler),
+     and its host time per call at compact_ids (1000 calls, no sync);
+     sort_blocks and merge_blocks
      at every block size 2^8 ... 2^17 (one int64 key), == TILE, > TILE,
      one block, two keys with payloads, two int64 keys with two payloads,
      three arrays, all-equal keys, heavy ties, INT64_MAX rows, and at the
@@ -120,30 +125,62 @@ def _compare(flags, arrays, capacity):
     return float(err), int(rtotal)
 
 
-def _rand(n, p, dtypes, gen):
+def _rand(n, p, dtypes, gen, offset: int = 0):
+    """Random flags and payloads; with offset > 0 each is a view that
+    starts `offset` elements into its storage."""
     import torch
-    flags = torch.rand(n, device="cuda", generator=gen) < p
-    arrays = tuple(torch.randint(-2**31, 2**31 - 1, (n,), dtype=dt,
-                                 device="cuda", generator=gen)
+    flags = (torch.rand(n + offset, device="cuda", generator=gen) < p)[offset:]
+    arrays = tuple(torch.randint(-2**31, 2**31 - 1, (n + offset,), dtype=dt,
+                                 device="cuda", generator=gen)[offset:]
                    for dt in dtypes)
     return flags, arrays
 
 
+def _host_us(fn, calls: int = 1000) -> float:
+    """Host time per call of `fn` in microseconds: perf_counter over
+    `calls` calls with no sync between them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_kernels(shapes, gen) -> list[dict]:
     """Kernel vs plain version at edge cases and at the main path's shapes
-    (`shapes`: (site, make_inputs, capacity)), each shape timed."""
+    (`shapes`: (site, make_inputs, capacity)), each shape timed; one call
+    at count_heads and at compact_ids split by kernel, and the host time
+    per call at compact_ids."""
     import torch
+    from genome_tpu_torch.kernels import cubuild
     from genome_tpu_torch.kernels.compact import (compact_flagged,
                                                   compact_flagged_ref)
 
     i32, i64 = torch.int32, torch.int64
-    edge = [(0, .5, (i64,), 16), (1, 1., (i32,), 1), (1025, .5, (i64, i32),
-            2048), (1025, 0., (i32,), 2048), (1025, 1., (i32,), 2048),
-            (100_000, .5, (i64,), 1000), (12_305, .3, (i32,) * 6, 50_000)]
-    for n, p, dts, cap in edge:
-        _compare(*_rand(n, p, dts, gen), cap)
+    tile = int(cubuild.load("compact").compact_tile_size())
+    edge = [  # (n, p, payload dtypes, capacity, view offset)
+        (0, .5, (i64,), 16, 0), (1, 1., (i32,), 1, 0),
+        (1025, .5, (i64, i32), 2048, 0), (1025, 0., (i32,), 2048, 0),
+        (1025, 1., (i32,), 2048, 0), (100_000, .5, (i64,), 1000, 0),
+        (12_305, .3, (i32,) * 6, 50_000, 0),
+        (100_000, .5, (i64, i32), 1 << 17, 1),
+        (3 * tile, .5, (i32, i64), 1 << 17, 3),
+        (tile + 1, 1., (i64,), 2 * tile, 8),
+        (tile + 1, .5, (i64, i32), 2 * tile, 0),
+        (tile - 1, .5, (i32,), tile, 0),
+        (17, 1., (i64,), 32, 0), (17, .6, (i32,), 32, 3),
+        (5 * tile, .5, (i64, i32), 2 * tile + 77, 0),
+        (1 << 23, 1., (i64,), 1 << 23, 0)]
+    for n, p, dts, cap, off in edge:
+        _compare(*_rand(n, p, dts, gen, off), cap)
     print(f"[kernels] {len(edge)} edge cases equal the plain version "
-          "(n = 0, 1, 1025; none, all, overflow; 6 payloads)", flush=True)
+          f"(n = 0, 1, 1025; none, all, overflow; 6 payloads; views at "
+          f"offsets 1, 3, 8; n = tile +- 1 and 17 (tile {tile}); capacity "
+          "cut mid-tile; every flag set at 2^23)", flush=True)
 
     rows = []
     for site, make_inputs, cap in shapes:
@@ -172,6 +209,18 @@ def phase_kernels(shapes, gen) -> list[dict]:
               f"bound={bound:7.4f} ms (32 B sectors {sector_bound:7.4f} ms) "
               f"library={lib:8.3f} ms",
               flush=True)
+        if site in ("count_heads", "compact_ids"):
+            row["split"] = _device_split(
+                f"compact {site}", lambda: compact_flagged(flags, arrays, cap))
+            row["device_ms"] = sum(row["split"].values())
+        if site == "compact_ids":
+            row["host_us"] = _host_us(
+                lambda: compact_flagged(flags, arrays, cap))
+            print(f"[kernels] compact_ids host time per call "
+                  f"{row['host_us']:.2f} us (1000 calls, no sync); device "
+                  f"{row['device_ms'] * 1e3:.2f} us; CUDA events "
+                  f"{ms * 1e3:.2f} us; library {lib * 1e3:.2f} us",
+                  flush=True)
         del flags, arrays
     return rows
 
@@ -511,8 +560,9 @@ def _hist_partition_edges(gen) -> None:
           flush=True)
 
 
-def _device_split(label, fn, reps: int = 3) -> None:
-    """Device time per kernel of `fn` under torch.profiler, per call."""
+def _device_split(label, fn, reps: int = 3) -> dict:
+    """Device time per kernel of `fn` under torch.profiler, per call:
+    {kernel name: ms}, printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -525,9 +575,11 @@ def _device_split(label, fn, reps: int = 3) -> None:
           if str(e.device_type).endswith("CUDA")
           and e.self_device_time_total > 0]
     ev.sort(key=lambda e: -e.self_device_time_total)
+    split = {e.key: e.self_device_time_total / 1e3 / reps for e in ev}
     print(f"[{label}] device time per call by kernel: " + "; ".join(
-        f"{e.key[:40]} {e.self_device_time_total / 1e3 / reps:.4f} ms"
-        for e in ev[:6]), flush=True)
+        f"{k[:40]} {ms:.4f} ms" for k, ms in list(split.items())[:6]),
+        flush=True)
+    return split
 
 
 def phase_hist_partition(keys, gen) -> dict:
@@ -763,7 +815,7 @@ def main() -> int:
     print(f"[e2e] launches per site, legacy + repeats: {json.dumps(launches)}",
           flush=True)
 
-    head = rows[0]
+    head, ids = rows[0], rows[-1]
 
     def bitonic_entry(name, line):
         r = brows[name][0]  # the count-site shape the sorter path runs
@@ -800,8 +852,12 @@ def main() -> int:
         "name": "compact_flagged", "route": "cuda",
         "source": "genome_tpu_torch/kernels/csrc/compact.cu",
         "replaces": "genome_tpu/kernels/compact.py:177",
-        # wrapper calls on the main path; each is three __global__ launches
-        "launches": sum(launches.values()), "global_launches_per_call": 3,
+        # wrapper calls on the main path; each is one memset and one
+        # __global__ launch
+        "launches": sum(launches.values()), "global_launches_per_call": 1,
+        "host_us_per_call": {"compact_ids": ids["host_us"]},
+        "device_split": {r["site"]: r["split"] for r in rows
+                         if "split" in r},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -5,7 +5,8 @@ this package never imports):
 
   io/       FASTA/FASTQ streaming, benchmark workloads (host)
   kernels/  int64 k-mer keys, extraction, counting, and the hand-written
-            CUDA stream compactor (kernels/csrc/compact.cu)
+            CUDA kernels of kernels/csrc; the stream compactor
+            (compact.cu) is one decoupled look-back pass a call
   graph/    de Bruijn graph build, simplification, contig emission
   assemble/ pipeline, CLI, checkpointing, metrics
 

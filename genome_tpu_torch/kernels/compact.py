@@ -5,14 +5,17 @@ genome_tpu/kernels/compact.py::compact_flagged (`_compact_kernel`) and its
 Flagged elements of a stream, with any number (<= 6) of carried arrays,
 go densely and in order to the front of `capacity`-slot outputs, with
 their source positions and the exact flagged total. On a CUDA tensor the
-wrapper launches the hand-written kernel in `csrc/compact.cu` (three
-launches on the current stream: per-tile counts, one-block offset scan,
-ranked scatter); on a CPU tensor it runs the plain version
+wrapper launches the hand-written kernel in `csrc/compact.cu` (one pass
+with decoupled look-back: one memset of the look-back words and one
+launch on the current stream, which also writes the total and the
+overflow flag); on a CPU tensor it runs the plain version
 `compact_flagged_ref`. There is no fallback between the two.
 
-What bounds it on an H100: memory bandwidth. The flags and each payload
-are read once and each output element is written once; there is no
-arithmetic to speak of. See PERF.md for its time beside that bound.
+What bounds it on an H100: bytes over 3.35 TB/s. The flags are read
+once, as 16-byte vectors; each kept payload element is read once and each
+output element is written once, as contiguous runs staged through shared
+memory; there is no arithmetic to speak of. See PERF.md for its time
+beside that bound.
 
 Contract differences from the TPU kernel: no padding of n, no capacity
 alignment, `overflow` is exactly `total > capacity`. As there, output
@@ -42,7 +45,7 @@ SITES = {
 }
 
 # wrapper calls that launched the kernel, per call-site label (CUDA path
-# only); each call is three __global__ launches (one when n == 0)
+# only); each call is one memset and one __global__ launch
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -94,9 +97,9 @@ def _lib():
         lib.compact_tile_size.argtypes = []
         lib.compact_tile_size.restype = ll
         lib.compact_flagged_cuda.argtypes = [
-            vp, ll, i, ctypes.POINTER(vp), ctypes.POINTER(vp),
-            ctypes.POINTER(i), vp, ll, vp, vp, vp, vp]
+            vp, ll, ll, i, i, *[vp] * (2 * MAX_ARRAYS), vp, vp, ll, vp]
         lib.compact_flagged_cuda.restype = i
+        lib._tile = int(lib.compact_tile_size())
         lib._typed = True
     return lib
 
@@ -125,28 +128,35 @@ def compact_flagged(flags, arrays, capacity: int, site: str = "direct"):
     lib = _lib()
     dev = flags.device
     n = flags.shape[0]
-    nt = -(-n // int(lib.compact_tile_size()))
+    k = len(arrays)
     outs = tuple(torch.empty(capacity, dtype=a.dtype, device=dev)
                  for a in arrays)
-    pos = torch.empty(capacity, dtype=torch.int64, device=dev)
-    tile_counts = torch.empty(nt, dtype=torch.int32, device=dev)
-    offsets = torch.empty(nt, dtype=torch.int64, device=dev)
-    total = torch.empty(1, dtype=torch.int64, device=dev)
-    k = len(arrays)
-    srcs = (ctypes.c_void_p * max(k, 1))(*[a.data_ptr() for a in arrays])
-    dsts = (ctypes.c_void_p * max(k, 1))(*[o.data_ptr() for o in outs])
-    sizes = (ctypes.c_int * max(k, 1))(*[a.element_size() for a in arrays])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.compact_flagged_cuda(
-            flags.data_ptr(), n, k, srcs, dsts, sizes, pos.data_ptr(),
-            capacity, tile_counts.data_ptr(),
-            offsets.data_ptr(), total.data_ptr(), stream)
+    # one allocation: pos, then the kernel's scratch words [total,
+    # overflow, next tile id, one look-back word per tile]; the flags'
+    # address may shift the tiles by one
+    buf = torch.empty(capacity + 5 + n // lib._tile, dtype=torch.int64,
+                      device=dev)
+    pad = [None] * (MAX_ARRAYS - k)
+    args = (flags.data_ptr(), n, capacity, k,
+            sum(1 << j for j, a in enumerate(arrays)
+                if a.dtype == torch.int64),
+            *[a.data_ptr() for a in arrays], *pad,
+            *[o.data_ptr() for o in outs], *pad,
+            buf.data_ptr(), buf.data_ptr() + 8 * capacity,
+            buf.numel() - capacity,
+            # the raw handle: torch.cuda.current_stream() builds a Stream
+            # object, about a fifth of this call's host time
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if dev.index == torch.cuda.current_device():
+        err = lib.compact_flagged_cuda(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.compact_flagged_cuda(*args)
     if err != 0:
         raise RuntimeError(f"compact_flagged launch failed: cudaError {err}")
     LAUNCHES[site] += 1
-    total = total[0]
-    return outs, pos, total, total > capacity
+    return (outs, buf[:capacity], buf[capacity],
+            buf.view(torch.bool)[8 * (capacity + 1)])
 
 
 def compact_ids(flags, M: int, site: str = "direct"):

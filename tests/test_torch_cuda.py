@@ -29,26 +29,84 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,p,ncols,cap", [
-    (0, 0.5, 1, 16), (1, 1.0, 1, 1), (1025, 0.5, 2, 2048),
-    (1025, 0.0, 1, 2048), (1025, 1.0, 1, 2048), (100_000, 0.5, 1, 1000),
-    (12_305, 0.3, 6, 50_000), (3_000_000, 0.1, 2, 1 << 20)])
-def test_compact_kernel_matches_plain_on_card(cuda_device, n, p, ncols, cap):
-    g = torch.Generator(device=cuda_device)
-    g.manual_seed(n)
-    flags = torch.rand(n, device=cuda_device, generator=g) < p
-    arrays = tuple(torch.randint(-2**31, 2**31 - 1, (n,), device=cuda_device,
-                                 generator=g,
-                                 dtype=(torch.int64, torch.int32)[i % 2])
-                   for i in range(ncols))
-    got = compact.compact_flagged(flags, arrays, cap)
+def _tiles(x, tile):
+    """A size given as an int, or as (m, d) for m tiles plus d."""
+    return x if isinstance(x, int) else x[0] * tile + x[1]
+
+
+def _compact_case(dev, n, p, types, offset, seed):
+    """Flags at density p and payloads of `types` ("l" int64, "i" int32),
+    each a view `offset` elements into its storage when offset > 0."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    flags = (torch.rand(n + offset, device=dev, generator=g) < p)[offset:]
+    arrays = tuple(torch.randint(-2**31, 2**31 - 1, (n + offset,),
+                                 device=dev, generator=g,
+                                 dtype={"l": torch.int64, "i": torch.int32}[t]
+                                 )[offset:] for t in types)
+    return flags, arrays
+
+
+def _assert_compact_equal(flags, arrays, cap, got):
     want = compact.compact_flagged_ref(flags, arrays, cap)
     torch.cuda.synchronize()
     assert int(got[2]) == int(want[2]) and bool(got[3]) == bool(want[3])
     m = min(int(want[2]), cap)
     for a, b in zip(got[0] + (got[1],), want[0] + (want[1],)):
         assert torch.equal(a[:m], b[:m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,types,cap,offset", [
+    (0, 0.5, "l", 16, 0), (1, 1.0, "l", 1, 0), (1025, 0.5, "li", 2048, 0),
+    (1025, 0.0, "l", 2048, 0), (1025, 1.0, "l", 2048, 0),
+    (100_000, 0.5, "l", 1000, 0), (12_305, 0.3, "lilili", 50_000, 0),
+    (3_000_000, 0.1, "li", 1 << 20, 0),
+    # flag and payload views at offsets 1, 3 and 8
+    (100_000, 0.5, "li", 1 << 17, 1), (100_000, 0.5, "il", 1 << 17, 3),
+    (100_000, 0.3, "l", 1 << 17, 8), ((1, 1), 1.0, "i", (2, 0), 1),
+    # n at a tile +- 1, and one past (and short of) a 16-flag vector
+    ((1, 1), 0.5, "li", (2, 0), 0), ((1, -1), 0.5, "il", (1, 0), 0),
+    ((4, 1), 0.5, "l", (4, 0), 0), ((4, -1), 1.0, "i", (4, 0), 3),
+    (17, 1.0, "l", 32, 0), (15, 1.0, "i", 32, 3),
+    # the capacity cut in the middle of a tile
+    ((5, 0), 0.5, "li", (1, 77), 0), ((5, 0), 1.0, "l", (2, 4096), 0),
+    # a look-back across thousands of tiles
+    (50_000_000, 0.5, "l", 1 << 26, 0)]
+    # every payload set from 0 to 6 arrays, int32 and int64 mixed
+    + [(300_001, 0.4, t, 1 << 17, 0)
+       for t in ("", "i", "li", "ili", "llii", "iliil", "lilili")])
+def test_compact_kernel_matches_plain_on_card(cuda_device, n, p, types, cap,
+                                              offset):
+    tile = int(compact._lib().compact_tile_size())
+    n, cap = _tiles(n, tile), _tiles(cap, tile)
+    flags, arrays = _compact_case(cuda_device, n, p, types, offset, n)
+    got = compact.compact_flagged(flags, arrays, cap)
+    _assert_compact_equal(flags, arrays, cap, got)
+
+
+@pytest.mark.cuda
+def test_compact_back_to_back_and_on_a_side_stream(cuda_device):
+    """Three calls of different n back to back on one stream, then one on
+    a side stream whose input is made there just before the call: every
+    result exact. Look-back words left from an earlier call, or a launch
+    on another stream than the current one, would break one of them."""
+    cases = [(2_000_000, 0.3, "li", 1 << 20, 0),
+             (70_000, 0.9, "l", 1 << 16, 1), (5_000_000, 0.05, "", 1 << 18, 0)]
+    inputs = [_compact_case(cuda_device, n, p, t, off, seed)
+              for seed, (n, p, t, _, off) in enumerate(cases)]
+    got = [compact.compact_flagged(f, a, c[3])
+           for (f, a), c in zip(inputs, cases)]
+    side = torch.cuda.Stream(device=cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flags = ~inputs[0][0]
+        arrays = tuple(a + 1 for a in inputs[0][1])
+        side_got = compact.compact_flagged(flags, arrays, cases[0][3])
+    torch.cuda.synchronize()
+    for (f, a), c, g in zip(inputs, cases, got):
+        _assert_compact_equal(f, a, c[3], g)
+    _assert_compact_equal(flags, arrays, cases[0][3], side_got)
 
 
 @pytest.mark.cuda
