@@ -28,8 +28,12 @@ Phases (any failure exits non-zero and prints no result line):
      (10, 32) histogram sizes a 1025-way partition of (top word, low
      word), the sentinels in the last bucket), then at edge cases (n = 0,
      one bucket, B = 1, out-of-range bids, overflow, int64 payloads,
-     nbits 16, sentinels at bit 63) and the histogram at (10, 32),
-     (8, 0), (8, 56) and (10, 32) on the sorted stream;
+     nbits 16, sentinels at bit 63; for the partition also hundreds of
+     tiles at B = 2, 1025 and 4096 with buckets empty in every other tile,
+     a one-bucket tail, n a tile multiple -1 and +1, views at offset 1, a
+     cap reached mid-tile) and the histogram at (10, 32), (8, 0), (8, 56)
+     and (10, 32) on the sorted stream; one partition call split by
+     kernel (torch.profiler: one memset and one __global__ launch);
   3. end to end on the E. coli-scale benchmark workload (4.6 Mbp, 100 bp
      reads, 24x, k = 21), the contig SHAs equal to the golden oracle's
      cached in bench_golden_cache.json:
@@ -505,7 +509,9 @@ def _hist_compare(keys, nbits, shift) -> float:
 def _hist_partition_edges(gen) -> None:
     """Both kernels against their plain versions at edge cases."""
     import torch
+    from genome_tpu_torch.kernels import partition
     from genome_tpu_torch.kernels.keys import SENTINEL
+    from genome_tpu_torch.kernels.partition import CHUNK
     i32, i64 = torch.int32, torch.int64
 
     def keys(n, fill):
@@ -532,37 +538,66 @@ def _hist_partition_edges(gen) -> None:
           "5, odd and misaligned; all-equal and sorted keys; sentinels at "
           "(8, 56) and (1, 63); nbits 13 and 16)", flush=True)
 
-    pedge = [(0, 4, 1024, "random", i32, i32),
-             (1000, 8, 2048, "random", i32, i32),
-             (200_000, 5, 201_728, "one", i32, i32),
-             (200_000, 1, 201_728, "random", i32, i64),
-             (300_000, 4, 100_352, "out of range", i32, i32),
-             (300_000, 4, 8192, "hot0", i32, i32),
-             (500_000, 1025, 2048, "random", i64, i64),
-             (1_000_000, 1025, 4096, "sorted", i32, i32)]
-    for n, B, cap, fill, bdt, rdt in pedge:
+    tile = partition._lib()._tile
+    pedge = [(0, 4, 1024, "random", i32, i32, 0),
+             (1000, 8, 2048, "random", i32, i32, 0),
+             (200_000, 5, 201_728, "one", i32, i32, 0),
+             (200_000, 1, 201_728, "random", i32, i64, 0),
+             (300_000, 4, 100_352, "out of range", i32, i32, 0),
+             (300_000, 4, 8192, "hot0", i32, i32, 0),
+             (500_000, 1025, 2048, "random", i64, i64, 0),
+             (1_000_000, 1025, 4096, "sorted", i32, i32, 0),
+             # many tiles (long look-back chains), buckets empty in every
+             # other tile; cap None: the largest bucket plus one CHUNK
+             ((300, 0), 2, None, "random", i32, i32, 0),
+             ((400, 3), 1025, None, "sparse", i32, i32, 0),
+             ((200, 5), 4096, None, "sparse", i32, i64, 0),
+             ((150, 0), 4096, None, "random", i64, i64, 0),
+             ((40, 0), 1025, None, "tail", i32, i32, 0),  # one-bucket tail
+             ((7, -1), 9, None, "random", i32, i32, 0),   # a tile multiple
+             ((7, 1), 9, None, "random", i64, i32, 0),    # -1 and +1
+             ((5, 3), 7, None, "random", i32, i32, 1),    # bid[1:], rem[1:]
+             ((5, 3), 7, None, "random", i64, i64, 1),
+             ((5, 3), 1025, None, "out of range", i32, i64, 1),
+             ((4, 0), 4, 8192, "hot0", i64, i64, 0)]      # cap mid-tile
+    for n, B, cap, fill, bdt, rdt, off in pedge:
+        n = n if isinstance(n, int) else n[0] * tile + n[1]
         lo, hi = (-3, B + 3) if fill == "out of range" else (0, B)
-        bid = torch.randint(lo, hi, (n,), device="cuda", generator=gen,
+        bid = torch.randint(lo, hi, (n + off,), device="cuda", generator=gen,
                             dtype=bdt)
         if fill == "one":
             bid[:] = B - 1
         elif fill == "hot0":  # bucket 0 overflows into nothing: bucket 1's
             # region is compared in full
-            bid[torch.rand(n, device="cuda", generator=gen) < 0.9] = 0
+            bid[torch.rand(n + off, device="cuda", generator=gen) < 0.9] = 0
         elif fill == "sorted":
             bid = torch.sort(bid).values
-        rem = torch.randint(-2**31, 2**31 - 1, (n,), device="cuda",
+        elif fill == "sparse":  # odd tiles: the lowest third of the buckets
+            odd = (torch.arange(n + off, device="cuda") - off) // tile % 2
+            bid[odd == 1] %= B // 3 + 1
+        elif fill == "tail":  # the last eight tiles all in the last bucket
+            bid[-8 * tile:] = B - 1
+        rem = torch.randint(-2**31, 2**31 - 1, (n + off,), device="cuda",
                             generator=gen, dtype=rdt)
+        bid, rem = bid[off:], rem[off:]
+        if cap is None:
+            keep = (bid >= 0) & (bid < B)
+            top = int(torch.bincount(bid[keep].long(), minlength=B).max())
+            cap = (top // CHUNK + 2) * CHUNK
         _partition_compare(bid, rem, B, cap)
     print(f"[partition] {len(pedge)} edge cases equal the plain version "
           "(n = 0, n < one tile, one bucket, B = 1, out-of-range bids, an "
-          "overflowing bucket, int64 bids and payloads, sorted bids)",
-          flush=True)
+          "overflowing bucket, int64 bids and payloads, sorted bids; "
+          f"{tile}-element tiles: up to 400 of them at B = 2, 1025 and "
+          "4096 with buckets empty in every other tile, a one-bucket tail, "
+          "n a tile multiple -1 and +1, views at offset 1, a cap reached "
+          "mid-tile)", flush=True)
 
 
-def _device_split(label, fn, reps: int = 3) -> dict:
+def _device_split(label, fn, reps: int = 3, counts=None) -> dict:
     """Device time per kernel of `fn` under torch.profiler, per call:
-    {kernel name: ms}, printed."""
+    {kernel name: ms}, printed. `counts`, a dict, if given, receives each
+    kernel's launches per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -576,6 +611,8 @@ def _device_split(label, fn, reps: int = 3) -> dict:
           and e.self_device_time_total > 0]
     ev.sort(key=lambda e: -e.self_device_time_total)
     split = {e.key: e.self_device_time_total / 1e3 / reps for e in ev}
+    if counts is not None:
+        counts.update({e.key: e.count / reps for e in ev})
     print(f"[{label}] device time per call by kernel: " + "; ".join(
         f"{k[:40]} {ms:.4f} ms" for k, ms in list(split.items())[:6]),
         flush=True)
@@ -668,7 +705,17 @@ def phase_hist_partition(keys, gen) -> dict:
     print(f"[partition] n={n} B={B} cap={cap} kernel={ms:8.4f} ms plain="
           f"{plain:8.3f} ms bound={bound:7.4f} ms stable sort + gather + "
           f"bincount={lib:8.4f} ms", flush=True)
-    _device_split("partition", lambda: partition_by_bucket(bid, rem, B, cap))
+    calls: dict = {}
+    prow["split"] = _device_split(
+        "partition", lambda: partition_by_bucket(bid, rem, B, cap),
+        counts=calls)
+    kernels = {k: c for k, c in calls.items() if "emset" not in k}
+    memsets = sum(c for k, c in calls.items() if "emset" in k)
+    if (memsets != 1 or list(kernels.values()) != [1]
+            or "partition_tiles" not in next(iter(kernels))):
+        raise AssertionError(f"one partition_by_bucket call ran {calls} "
+                             "(launches per call), not one partition_tiles "
+                             "launch and one memset")
     del bid, rem
     torch.cuda.empty_cache()
     return {"launches": launches, "skew": skew,
@@ -839,13 +886,15 @@ def main() -> int:
             "source": f"genome_tpu_torch/kernels/csrc/{src}.cu",
             "replaces": f"genome_tpu/kernels/{replaces}",
             # wrapper calls on its path; digit_histogram is one __global__
-            # launch, partition_by_bucket three
-            "launches": hp["launches"][name],
+            # launch a call, partition_by_bucket one memset and one
+            # __global__ launch
+            "launches": hp["launches"][name], "global_launches_per_call": 1,
             "max_abs_err": max(x["max_abs_err"]
                                for x in r.get("shapes", [r])),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "matched_plain": True,
+            **({"device_split": r["split"]} if "split" in r else {}),
             "shapes": r.get("shapes", [r])}
 
     summary = {"kernels": [{

@@ -6,14 +6,16 @@ Each (bid, rem) pair with 0 <= bid < B moves rem into bucket bid's region
 of a [B, bucket_cap] output, in stream order; pairs with any other bid are
 dropped and counted nowhere, as in JAX (its uint32 row sort leaves them
 past the last segment). On a CUDA tensor the wrapper launches the
-hand-written kernels in `csrc/partition.cu` (per-tile bucket counts, a
-per-bucket scan over the tiles, a ranked scatter: three launches); on a
-CPU tensor it runs the plain version `partition_by_bucket_ref`. There is
-no fallback between the two. The moving happens in the kernel: the CUDA
-path calls no sort, bincount or library scatter.
+hand-written kernel in `csrc/partition.cu` (one pass with a decoupled
+look-back over each tile's row of bucket counts: one memset of the tile
+states and one launch on the current stream, which also writes the
+totals and the overflow flag); on a CPU tensor it runs the plain version
+`partition_by_bucket_ref`. There is no fallback between the two. The
+moving happens in the kernel: the CUDA path calls no sort, bincount or
+library scatter.
 
-What bounds it on an H100: memory bandwidth, bid read once and rem read
-and written once; see PERF.md for its time beside that bound.
+What bounds it on an H100: bytes, bid read once and rem read and written
+once; see PERF.md for its time beside that bound.
 
 Contract differences from the TPU kernel: no `row_len` (the TPU's row
 sort and DMA granularity; on Hopper the result does not depend on any
@@ -32,11 +34,11 @@ import ctypes
 import torch
 
 CHUNK = 1024          # the TPU's per-bucket DMA granularity (overflow rule)
-MAX_BUCKETS = 4096    # the CUDA kernels' shared-memory budget
+MAX_BUCKETS = 4096    # the CUDA kernel's shared-memory budget
 _DTYPES = (torch.int32, torch.int64)
 
-# wrapper calls that launched the kernels (CUDA path only); each is three
-# __global__ launches
+# wrapper calls that launched the kernel (CUDA path only); each is one
+# memset and one __global__ launch
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -88,9 +90,10 @@ def _lib():
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.partition_tile_size.argtypes = []
         lib.partition_tile_size.restype = ll
-        lib.partition_cuda.argtypes = [vp, i, vp, i, ll, i, ll, vp, vp, vp,
-                                       vp, vp]
+        lib.partition_cuda.argtypes = [vp, i, vp, i, ll, i, ll, ll, vp, vp,
+                                       vp, ll, vp]
         lib.partition_cuda.restype = i
+        lib._tile = int(lib.partition_tile_size())
         lib._typed = True
     return lib
 
@@ -123,19 +126,30 @@ def partition_by_bucket(bid, rem, num_buckets: int, bucket_cap: int):
         totals = torch.zeros(num_buckets, dtype=torch.int64, device=dev)
         return out, totals, _overflow(totals, bucket_cap)
     lib = _lib()
-    nt = -(-n // int(lib.partition_tile_size()))
-    counts = torch.empty(num_buckets * nt, dtype=torch.int32, device=dev)
-    offsets = torch.empty(num_buckets * nt, dtype=torch.int64, device=dev)
-    totals = torch.empty(num_buckets, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.partition_cuda(
-            bid.data_ptr(), bid.element_size(), rem.data_ptr(),
+    # the tiles start on the 16-byte line below bid's address
+    shift = (bid.data_ptr() & 15) // bid.element_size()
+    n_tiles = -(-(n + shift) // lib._tile)
+    # the totals, then the overflow flag; the kernel's scratch words: the
+    # next tile id, one 32-bit state a tile, then (16-byte aligned) a
+    # uint16 count row and an int64 prefix row a tile, B rounded up to 8
+    # wide
+    result = torch.empty(num_buckets + 1, dtype=torch.int64, device=dev)
+    states = (2 + (n_tiles + 1) // 2) & ~1
+    scratch = torch.empty(states + n_tiles * -(-num_buckets // 8) * 10,
+                          dtype=torch.int64, device=dev)
+    args = (bid.data_ptr(), bid.element_size(), rem.data_ptr(),
             rem.element_size(), n, num_buckets, bucket_cap,
-            counts.data_ptr(), offsets.data_ptr(), totals.data_ptr(),
-            out.data_ptr(), stream)
+            bucket_cap - CHUNK, out.data_ptr(), result.data_ptr(),
+            scratch.data_ptr(), scratch.numel(),
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if dev.index == torch.cuda.current_device():
+        err = lib.partition_cuda(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.partition_cuda(*args)
     if err != 0:
         raise RuntimeError(f"partition_by_bucket launch failed: cudaError "
                            f"{err}")
     LAUNCHES["partition_by_bucket"] += 1
-    return out, totals, _overflow(totals, bucket_cap)
+    return (out, result[:num_buckets],
+            result.view(torch.bool)[8 * num_buckets])

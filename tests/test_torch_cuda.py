@@ -217,31 +217,73 @@ def _assert_partition_equal(got, want, cap):
     assert torch.equal(out[kept], rout[kept])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,B,cap,bids,dtypes", [
-    (0, 4, 1024, "random", (torch.int32, torch.int32)),
-    (1000, 8, 2048, "random", (torch.int32, torch.int32)),  # < one tile
-    (200_000, 5, 201_728, "one", (torch.int32, torch.int32)),
-    (200_000, 1, 201_728, "random", (torch.int32, torch.int64)),
-    (300_000, 4, 100_352, "out of range", (torch.int32, torch.int32)),
-    (300_000, 4, 8192, "hot0", (torch.int32, torch.int32)),  # overflow
-    (500_000, 1025, 2048, "random", (torch.int64, torch.int64)),
-    (1_000_000, 1025, 4096, "sorted", (torch.int32, torch.int32))])
-def test_partition_kernel_matches_plain_on_card(cuda_device, n, B, cap, bids,
-                                                dtypes):
-    g = torch.Generator(device=cuda_device)
-    g.manual_seed(n + B)
+def _partition_case(dev, n, B, bids, dtypes, offset, tile, seed):
+    """bid and rem by `bids` (random, one, out of range, hot0: 90 % in
+    bucket 0, sorted, sparse: odd tiles use only the lowest third of the
+    buckets, tail: the last eight tiles all in bucket B - 1), each a view
+    `offset` elements into its storage when offset > 0."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
     lo, hi = (-3, B + 3) if bids == "out of range" else (0, B)
-    bid = torch.randint(lo, hi, (n,), generator=g, device=cuda_device,
+    bid = torch.randint(lo, hi, (n + offset,), generator=g, device=dev,
                         dtype=dtypes[0])
     if bids == "one":
         bid[:] = B - 1
     elif bids == "hot0":
-        bid[torch.rand(n, generator=g, device=cuda_device) < 0.9] = 0
+        bid[torch.rand(n + offset, generator=g, device=dev) < 0.9] = 0
     elif bids == "sorted":
         bid = torch.sort(bid).values
-    rem = torch.randint(-2**31, 2**31 - 1, (n,), generator=g,
-                        device=cuda_device, dtype=dtypes[1])
+    elif bids == "sparse":
+        odd = (torch.arange(n + offset, device=dev) - offset) // tile % 2 == 1
+        bid[odd] %= B // 3 + 1
+    elif bids == "tail":
+        bid[-8 * tile:] = B - 1
+    rem = torch.randint(-2**31, 2**31 - 1, (n + offset,), generator=g,
+                        device=dev, dtype=dtypes[1])
+    return bid[offset:], rem[offset:]
+
+
+I32, I64 = (torch.int32, torch.int32), (torch.int64, torch.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B,cap,bids,dtypes,offset", [
+    (0, 4, 1024, "random", I32, 0),
+    (1000, 8, 2048, "random", I32, 0),                  # < one tile
+    (200_000, 5, 201_728, "one", I32, 0),
+    (200_000, 1, 201_728, "random", (torch.int32, torch.int64), 0),
+    (300_000, 4, 100_352, "out of range", I32, 0),
+    (300_000, 4, 8192, "hot0", I32, 0),                 # overflow
+    (500_000, 1025, 2048, "random", I64, 0),
+    (1_000_000, 1025, 4096, "sorted", I32, 0),
+    # long look-back chains; buckets empty in every other tile
+    ((300, 0), 2, None, "random", I32, 0),
+    ((400, 3), 1025, None, "sparse", I32, 0),
+    ((200, 5), 4096, None, "sparse", (torch.int32, torch.int64), 0),
+    ((150, 0), 4096, None, "random", I64, 0),
+    # whole tiles of one bucket after random ones (the sentinel tail)
+    ((40, 0), 1025, None, "tail", I32, 0),
+    # n one short of and one past a tile multiple
+    ((7, -1), 9, None, "random", I32, 0),
+    ((7, 1), 9, None, "random", (torch.int64, torch.int32), 0),
+    # views bid[1:], rem[1:] of both widths
+    ((5, 3), 7, None, "random", I32, 1),
+    ((5, 3), 7, None, "random", I64, 1),
+    ((5, 3), 1025, None, "out of range", (torch.int32, torch.int64), 1),
+    # the cap reached in the middle of a tile
+    ((4, 0), 4, 8192, "hot0", (torch.int64, torch.int64), 0)])
+def test_partition_kernel_matches_plain_on_card(cuda_device, n, B, cap, bids,
+                                                dtypes, offset):
+    """cap None: the largest bucket plus one CHUNK, rounded up to CHUNK,
+    so that nothing overflows."""
+    tile = partition._lib()._tile
+    n = _tiles(n, tile)
+    bid, rem = _partition_case(cuda_device, n, B, bids, dtypes, offset, tile,
+                               n + B)
+    if cap is None:
+        keep = (bid >= 0) & (bid < B)
+        top = int(torch.bincount(bid[keep].long(), minlength=B).max())
+        cap = (top // partition.CHUNK + 2) * partition.CHUNK
     partition.reset_launches()
     got = partition.partition_by_bucket(bid, rem, B, cap)
     want = partition.partition_by_bucket_ref(bid, rem, B, cap)
@@ -249,6 +291,36 @@ def test_partition_kernel_matches_plain_on_card(cuda_device, n, B, cap, bids,
     _assert_partition_equal(got, want, cap)
     assert bool(got[2]) == (bids == "hot0")
     assert partition.LAUNCHES["partition_by_bucket"] == (1 if n else 0)
+
+
+@pytest.mark.cuda
+def test_partition_back_to_back_and_on_a_side_stream(cuda_device):
+    """Three calls of different n and B back to back on one stream, each
+    with fresh scratch, then one on a side stream whose input is made there
+    just before the call: every result exact. Look-back words or a tile
+    counter left from an earlier call, or a launch on another stream than
+    the current one, would break one of them."""
+    tile = partition._lib()._tile
+    cases = [(2_000_000, 1025, 4096, "random", I32, 0),
+             (70_000, 3, 71_680, "sparse", I64, 1),
+             (3 * tile + 1, 4096, 2048, "random",
+              (torch.int32, torch.int64), 0)]
+    inputs = [_partition_case(cuda_device, n, B, bids, dt, off, tile, seed)
+              for seed, (n, B, _, bids, dt, off) in enumerate(cases)]
+    got = [partition.partition_by_bucket(bid, rem, c[1], c[2])
+           for (bid, rem), c in zip(inputs, cases)]
+    side = torch.cuda.Stream(device=cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bid = (inputs[0][0] + 7) % 1025
+        rem = inputs[0][1] + 1
+        side_got = partition.partition_by_bucket(bid, rem, 1025, 4096)
+    torch.cuda.synchronize()
+    for (b, r), c, g in zip(inputs, cases, got):
+        _assert_partition_equal(g, partition.partition_by_bucket_ref(
+            b, r, c[1], c[2]), c[2])
+    _assert_partition_equal(side_got, partition.partition_by_bucket_ref(
+        bid, rem, 1025, 4096), 4096)
 
 
 @pytest.mark.cuda
