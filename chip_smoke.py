@@ -28,12 +28,17 @@ Phases (any failure exits non-zero and prints no result line):
      (10, 32) histogram sizes a 1025-way partition of (top word, low
      word), the sentinels in the last bucket), then at edge cases (n = 0,
      one bucket, B = 1, out-of-range bids, overflow, int64 payloads,
-     nbits 16, sentinels at bit 63; for the partition also hundreds of
-     tiles at B = 2, 1025 and 4096 with buckets empty in every other tile,
-     a one-bucket tail, n a tile multiple -1 and +1, views at offset 1, a
-     cap reached mid-tile) and the histogram at (10, 32), (8, 0), (8, 56)
-     and (10, 32) on the sorted stream; one partition call split by
-     kernel (torch.profiler: one memset and one __global__ launch);
+     nbits 16, sentinels at bit 63; for the histogram also hot bins,
+     14 and 15 bits, and the pair cluster (16 bits) at n = 1, 31, 33,
+     misaligned and with a partial last pair; for the partition also hundreds of tiles at
+     B = 2, 1025 and 4096 with buckets empty in every other tile, a
+     one-bucket tail, n a tile multiple -1 and +1, views at offset 1, a
+     cap reached mid-tile) and the histogram at (10, 32), (8, 0), (8, 56),
+     (13, 29), (16, 26), (10, 32) on the sorted stream and on a hot one
+     (90 % of the keys one key); one histogram call at (10, 32) and one
+     at (16, 26), and one partition call, split by kernel (torch.profiler:
+     each one memset and one __global__ launch); the histogram's host
+     time per call (16,384 keys, 1000 calls, no sync);
   3. end to end on the E. coli-scale benchmark workload (4.6 Mbp, 100 bp
      reads, 24x, k = 21), the contig SHAs equal to the golden oracle's
      cached in bench_golden_cache.json:
@@ -523,20 +528,35 @@ def _hist_partition_edges(gen) -> None:
         elif fill == "sentinel":
             k[::7] = SENTINEL - torch.randint(0, 3000, k[::7].shape,
                                               device="cuda", generator=gen)
+        elif fill == "hot":  # 90 % of the keys one key, at random places
+            k[torch.rand(n, device="cuda", generator=gen) < 0.9] = \
+                0x2A5A5A5A5A5
         return k
 
     hedge = [(0, 8, 0, "random"), (5, 8, 0, "random"),
              (100_001, 10, 32, "misaligned"), (1_000_000, 8, 0, "equal"),
              (1_000_000, 8, 56, "sentinel"), (1_000_000, 1, 63, "sentinel"),
              (1_000_000, 13, 29, "random"), (1_000_000, 16, 0, "random"),
-             (1_000_000, 16, 26, "sorted")]
+             (1_000_000, 16, 26, "sorted"),
+             # hot bins; 64 and 128 KB of counters a block; the pair
+             # cluster (16 bits) at few keys, misaligned, and with a
+             # partial last step and pair
+             (3_000_000, 10, 32, "hot"), (3_000_000, 16, 26, "hot"),
+             (3_000_000, 8, 56, "sentinel"), (1_000_000, 14, 0, "random"),
+             (1_000_000, 15, 20, "random"), (1, 16, 0, "random"),
+             (31, 16, 0, "random"), (33, 16, 0, "random"),
+             (100_001, 16, 0, "misaligned"), (41_037, 16, 20, "random"),
+             (41_037, 16, 3, "misaligned"), (41_037, 15, 3, "misaligned"),
+             (1_000_000, 5, 37, "random"), (1_000_000, 2, 0, "random")]
     for n, nbits, shift, fill in hedge:
         k = keys(n + 1, "random")[1:] if fill == "misaligned" \
             else keys(n, fill)
         _hist_compare(k, nbits, shift)
     print(f"[hist] {len(hedge)} edge cases equal the plain version (n = 0, "
-          "5, odd and misaligned; all-equal and sorted keys; sentinels at "
-          "(8, 56) and (1, 63); nbits 13 and 16)", flush=True)
+          "1, 5, 31, 33, odd and misaligned; all-equal, sorted and hot "
+          "keys; sentinels at (8, 56) and (1, 63); nbits 2, 5, 13, 14, 15, "
+          "and 16 (the pair cluster) with a partial last step and pair)",
+          flush=True)
 
     tile = partition._lib()._tile
     pedge = [(0, 4, 1024, "random", i32, i32, 0),
@@ -663,11 +683,16 @@ def phase_hist_partition(keys, gen) -> dict:
     _hist_partition_edges(gen)
 
     srt = torch.sort(keys).values
+    hot = keys.clone()  # 90 % of the keys one key, at random places
+    hot[torch.rand(n, device="cuda", generator=gen) < 0.9] = keys[n // 2]
     hrows = []
     for label, x, nbits, shift in [("(10, 32)", keys, 10, 32),
                                    ("(8, 0)", keys, 8, 0),
                                    ("(8, 56)", keys, 8, 56),
-                                   ("(10, 32) sorted", srt, 10, 32)]:
+                                   ("(10, 32) sorted", srt, 10, 32),
+                                   ("(10, 32) hot", hot, 10, 32),
+                                   ("(13, 29)", keys, 13, 29),
+                                   ("(16, 26)", keys, 16, 26)]:
         err = _hist_compare(x, nbits, shift)
         if nbits == 8 and shift == 56 and \
                 int(digit_histogram(x, 8, 56)[255]) != n_sent:
@@ -684,9 +709,34 @@ def phase_hist_partition(keys, gen) -> dict:
         print(f"[hist] {label:16s} n={n} kernel={ms:8.4f} ms plain="
               f"{plain:8.3f} ms bound={bound:7.4f} ms bincount of the "
               f"digits={lib:8.4f} ms", flush=True)
-    del srt
+    del srt, hot
     print(f"[hist] contention: sorted/unsorted (10, 32) kernel time = "
-          f"{hrows[3]['ms'] / hrows[0]['ms']:.3f}", flush=True)
+          f"{hrows[3]['ms'] / hrows[0]['ms']:.3f}, hot/unsorted "
+          f"{hrows[4]['ms'] / hrows[0]['ms']:.3f}", flush=True)
+    hsplit = {}
+    for nbits, shift, name in ((10, 32, "hist_block"),
+                               (16, 26, "hist_pair")):
+        calls: dict = {}
+        hsplit[f"({nbits}, {shift})"] = _device_split(
+            f"hist ({nbits}, {shift})",
+            lambda: digit_histogram(keys, nbits, shift), counts=calls)
+        kernels = {k: c for k, c in calls.items() if "emset" not in k}
+        memsets = sum(c for k, c in calls.items() if "emset" in k)
+        if (memsets != 1 or list(kernels.values()) != [1]
+                or name not in next(iter(kernels))):
+            raise AssertionError(f"one digit_histogram call at ({nbits}, "
+                                 f"{shift}) ran {calls} (launches per "
+                                 f"call), not one {name} launch and one "
+                                 "memset")
+    # the host's time a call, at a size where the device takes less: at
+    # the count shape the launch queue fills and 1000 calls without a
+    # sync would time the device
+    small = keys[:1 << 14]
+    host_us = _host_us(lambda: digit_histogram(small, 10, 32))
+    small_ms = _time_ms(lambda: digit_histogram(small, 10, 32))
+    print(f"[hist] (10, 32) host time per call at {small.numel()} keys "
+          f"{host_us:.2f} us (1000 calls, no sync); CUDA events "
+          f"{small_ms * 1e3:.2f} us", flush=True)
 
     err = _partition_compare(bid, rem, B, cap)
     ms = _time_ms(lambda: partition_by_bucket(bid, rem, B, cap), reps=10)
@@ -719,7 +769,8 @@ def phase_hist_partition(keys, gen) -> dict:
     del bid, rem
     torch.cuda.empty_cache()
     return {"launches": launches, "skew": skew,
-            "digit_histogram": dict(hrows[0], shapes=hrows),
+            "digit_histogram": dict(hrows[0], shapes=hrows, split=hsplit,
+                                    host_us=host_us),
             "partition_by_bucket": prow}
 
 
@@ -885,8 +936,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"genome_tpu_torch/kernels/csrc/{src}.cu",
             "replaces": f"genome_tpu/kernels/{replaces}",
-            # wrapper calls on its path; digit_histogram is one __global__
-            # launch a call, partition_by_bucket one memset and one
+            # wrapper calls on its path; each is one memset and one
             # __global__ launch
             "launches": hp["launches"][name], "global_launches_per_call": 1,
             "max_abs_err": max(x["max_abs_err"]
@@ -895,6 +945,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "matched_plain": True,
             **({"device_split": r["split"]} if "split" in r else {}),
+            **({"host_us_per_call": r["host_us"]} if "host_us" in r
+               else {}),
             "shapes": r.get("shapes", [r])}
 
     summary = {"kernels": [{

@@ -3,10 +3,13 @@ genome_tpu/kernels/pallas_hist.py::digit_histogram (`_hist_kernel`) and its
 `digit_histogram_auto` wrapper.
 
 Counts the digit (key >> shift) & (2^nbits - 1) over a stream of int64
-keys. On a CUDA tensor the wrapper launches the hand-written kernel in
-`csrc/hist.cu` (one launch: a per-block shared-memory histogram with
-warp-aggregated adds, folded into the output with global atomics; bins
-in device memory above 2^13); on a CPU tensor it runs the plain version
+keys. On a CUDA tensor the wrapper calls the hand-written kernel in
+`csrc/hist.cu`: one memset of the output and one launch on the caller's
+stream. Each block counts into shared-memory counters, one plain atomic
+add a key, and adds them into the output with global atomics at the end;
+at 16 bits a thread block cluster of two splits the counters, each block
+reading its keys once and passing their digits to the other through
+distributed shared memory. On a CPU tensor it runs the plain version
 `digit_histogram_ref`. There is no fallback between the two.
 
 The digit is taken from the JAX package's 64-bit (hi, lo) value of each
@@ -36,7 +39,7 @@ _NEAR_SENTINEL = INT64_MAX - (1 << 32)  # keys above it are JAX pairs
 _BIT63 = -(1 << 63)                     # with hi = 0xFFFFFFFF
 
 # wrapper calls that launched the kernel (CUDA path only); each is one
-# __global__ launch
+# memset and one __global__ launch
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -99,15 +102,20 @@ def digit_histogram(keys, nbits: int = 8, shift: int = 0):
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
     _check(keys, nbits, shift)
-    out = torch.zeros(1 << nbits, dtype=torch.int64, device=keys.device)
+    dev = keys.device
     n = keys.shape[0]
     if n == 0:
-        return out
+        return torch.zeros(1 << nbits, dtype=torch.int64, device=dev)
     lib = _lib()
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
-        err = lib.digit_histogram_cuda(keys.data_ptr(), n, nbits, shift,
-                                       out.data_ptr(), stream)
+    # the kernel's entry point zeroes it on the stream
+    out = torch.empty(1 << nbits, dtype=torch.int64, device=dev)
+    args = (keys.data_ptr(), n, nbits, shift, out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if dev.index == torch.cuda.current_device():
+        err = lib.digit_histogram_cuda(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.digit_histogram_cuda(*args)
     if err != 0:
         raise RuntimeError(f"digit_histogram launch failed: cudaError {err}")
     LAUNCHES["digit_histogram"] += 1

@@ -171,7 +171,8 @@ def test_bitonic_kernels_match_plain_on_card(cuda_device, block, nblocks,
 
 def _hist_keys(dev, n, fill, seed):
     """int64 keys below 2^42 by `fill` (random, sorted, equal), every
-    seventh a sentinel or near-sentinel key for `sentinel`."""
+    seventh a sentinel or near-sentinel key for `sentinel`, 90 % of them
+    one key at random places for `hot`."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     keys = torch.randint(0, 1 << 42, (n,), generator=g, device=dev)
@@ -182,7 +183,15 @@ def _hist_keys(dev, n, fill, seed):
     elif fill == "sentinel":
         keys[::7] = SENTINEL - torch.randint(0, 3000, keys[::7].shape,
                                              generator=g, device=dev)
+    elif fill == "hot":
+        keys[torch.rand(n, generator=g, device=dev) < 0.9] = 0x2A5A5A5A5A5
     return keys
+
+
+def _assert_hist_equal(keys, nbits, shift, got):
+    want = hist.digit_histogram_ref(keys, nbits, shift)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got.sum()) == keys.numel()
 
 
 @pytest.mark.cuda
@@ -194,18 +203,52 @@ def _hist_keys(dev, n, fill, seed):
     (1_000_000, 8, 0, "equal", 0),
     (1_000_000, 8, 56, "sentinel", 0),      # the digit covers bit 63
     (1_000_000, 1, 63, "sentinel", 0),
-    (1_000_000, 13, 29, "random", 0),       # the largest shared histogram
-    (1_000_000, 16, 0, "random", 0),        # bins in device memory
-    (1_000_000, 16, 26, "sorted", 0)])
+    (1_000_000, 13, 29, "random", 0),       # 32 KB of counters a block
+    (1_000_000, 16, 0, "random", 0),        # the pair cluster
+    (1_000_000, 16, 26, "sorted", 0),
+    # 90 % of the keys in one bin, at random places
+    (3_000_000, 10, 32, "hot", 0), (3_000_000, 16, 26, "hot", 0),
+    (3_000_000, 8, 56, "sentinel", 0),
+    (1_000_000, 14, 0, "random", 0),        # 64 KB of counters a block
+    (1_000_000, 15, 20, "random", 0),       # 128 KB, one block an SM
+    # the pair cluster at a few keys and misaligned
+    (1, 16, 0, "random", 0), (31, 16, 0, "random", 0),
+    (33, 16, 0, "random", 0), (100_001, 16, 0, "random", 1),
+    (1_000_000, 5, 37, "random", 0), (1_000_000, 2, 0, "random", 0),
+    # a partial last step (a step is some thousands of keys), blocks and
+    # pairs with no whole step, a partial last pair
+    (41_037, 10, 32, "random", 0), (41_037, 15, 3, "random", 1),
+    (41_037, 16, 20, "random", 0), (41_037, 16, 3, "random", 1)])
 def test_hist_kernel_matches_plain_on_card(cuda_device, n, nbits, shift,
                                            fill, offset):
     keys = _hist_keys(cuda_device, n + offset, fill, n)[offset:]
     hist.reset_launches()
     got = hist.digit_histogram(keys, nbits, shift)
-    want = hist.digit_histogram_ref(keys, nbits, shift)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want) and int(got.sum()) == n
+    _assert_hist_equal(keys, nbits, shift, got)
     assert hist.LAUNCHES["digit_histogram"] == (1 if n else 0)
+
+
+@pytest.mark.cuda
+def test_hist_back_to_back_and_on_a_side_stream(cuda_device):
+    """Calls at 8, 13 and 16 bits back to back on one stream, each into a
+    fresh output, then one on a side stream whose keys are made there just
+    before the call: every result exact. An output zeroed on another
+    stream than the launch's, or counters left from an earlier call,
+    would break one of them."""
+    cases = [(2_000_000, 8, 0, "random", 0), (70_001, 13, 29, "hot", 1),
+             (3_000_000, 16, 26, "random", 0)]
+    inputs = [_hist_keys(cuda_device, n + off, fill, seed)[off:]
+              for seed, (n, _, _, fill, off) in enumerate(cases)]
+    got = [hist.digit_histogram(k, c[1], c[2]) for k, c in zip(inputs, cases)]
+    side = torch.cuda.Stream(device=cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        keys = inputs[2] * 3 + 1
+        side_got = hist.digit_histogram(keys, 16, 20)
+    torch.cuda.synchronize()
+    for k, c, g in zip(inputs, cases, got):
+        _assert_hist_equal(k, c[1], c[2], g)
+    _assert_hist_equal(keys, 16, 20, side_got)
 
 
 def _assert_partition_equal(got, want, cap):
