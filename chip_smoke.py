@@ -6,9 +6,15 @@
 Phases (any failure exits non-zero and prints no result line):
   1. device and build: the card's name and power limit, the device count,
      and the nvcc build of every kernel from kernels/csrc, one nvcc per
-     source, all started together (with each -Xptxas -v report);
-  2. every kernel against its plain PyTorch version on the card, exactly,
-     at the main path's shapes and at edge cases, each shape timed with
+     source, all started together (with each -Xptxas -v report), beside
+     the g++ build of the native FASTA/FASTQ parser (io/native);
+  2. the code matrix's packed upload (legacy matrix, and its real rows
+     with no mask): host packing into pinned tensors cold and warm,
+     extract_stream first and warm and in chunks, against the uint8 path
+     (pageable copy), copies timed with CUDA events, the profiler's
+     host-to-device copies (kind, bytes, time); keys equal the uint8
+     path's; then every kernel against its plain PyTorch version on the
+     card, exactly, at the main path's shapes and at edge cases, each shape timed with
      CUDA events beside its bound, the plain version and one library call
      that computes the same function (`library_ms`; the port never calls
      it): compact_flagged at its four sites and at edge cases (views at
@@ -50,7 +56,12 @@ Phases (any failure exits non-zero and prints no result line):
        resumed by run_pipeline; sort_blocks launched once and merge_blocks
        once per merge level;
      - run_pipeline(counter="bucket") on both workloads and
-       run_pipeline(counter="hashtable") on legacy.
+       run_pipeline(counter="hashtable") on legacy;
+     - native ingest: the legacy reads written as FASTQ and assembled by
+       the CLI (cli.main, --io native) three times: the walls, every
+       compaction site launched, and pinned host-to-device copies of
+       exactly the packed codes (no mask, no pageable copy of 1 MiB or
+       more).
 The last two lines are a {"kernels": [...]} summary and
 {"ok": true, "device": {...}}. Imports nothing of JAX or genome_tpu.
 """
@@ -63,6 +74,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # the data sheet has no integer compare rate; its nearest row, float32
@@ -70,6 +82,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 OPS_PER_S = 67e12
 REPEATS = 20
 BLOCK = 65536  # sort_pairs_merge's default block
+CHUNKS = (1 << 21, 1 << 19, 1 << 18, 1 << 17)  # extract_stream chunk_rows
 
 
 def _smi() -> str:
@@ -157,6 +170,242 @@ def _host_us(fn, calls: int = 1000) -> float:
     us = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def _build_native() -> float:
+    """Seconds to build and load the native parser's library."""
+    from genome_tpu_torch.io.native import cio
+    t0 = time.perf_counter()
+    cio.load()
+    return time.perf_counter() - t0
+
+
+def _htod_rows(prof) -> list[dict]:
+    """Every host-to-device copy of a profiled run, from its Chrome trace:
+    kind (Pinned or Pageable), bytes and device time."""
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    rows = []
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") == "gpu_memcpy" and "HtoD" in name:
+            kind = next((k for k in ("Pinned", "Pageable") if k in name), name)
+            rows.append(dict(kind=kind, bytes=int(e["args"]["bytes"]),
+                             ms=e["dur"] / 1e3))
+    return rows
+
+
+def _print_htod(label, rows) -> None:
+    big = [r for r in rows if r["bytes"] >= 1 << 20]
+    small = [r for r in rows if r["bytes"] < 1 << 20]
+    print(f"[{label}] Memcpy HtoD: " + "; ".join(
+        f"{r['kind']} {r['bytes']} B {r['ms']:.4f} ms" for r in big)
+        + f"; {len(small)} more under 1 MiB ({sum(r['bytes'] for r in small)}"
+        f" B, {sum(r['ms'] for r in small):.4f} ms)", flush=True)
+
+
+def _wall(fn) -> float:
+    """Host seconds of `fn`, between two device syncs."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_upload(w, k) -> dict:
+    """The code matrix's way to the card, before anything else in the
+    process allocates pinned memory: the legacy matrix (its padding rows
+    are code 4, so the mask goes too) and its real rows (no N: no mask).
+    For each: the host packing into pinned tensors, cold (the process's
+    first pinned allocation) apart from warm; extract_stream, first call
+    apart from warm ones, in chunks of each of CHUNKS rows, and the uint8
+    path (a pageable copy of the codes, no packing); the copies of packed
+    and mask and the pageable uint8 copy, timed with CUDA events; one warm
+    call's host-to-device copies from the profiler. The keys must equal
+    the uint8 path's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from genome_tpu_torch.assemble.pipeline import extract_stream
+    from genome_tpu_torch.kernels.extract import (extract_canonical_kmers,
+                                                  pack_codes_host)
+    torch.zeros(1, device="cuda")  # the context, outside the cold calls
+    res = {}
+    for label, codes in (("legacy", w["err"]),
+                         ("real rows", w["err"][: w["num_reads"]])):
+        r = res[label] = dict(rows=codes.shape[0], uint8_bytes=codes.nbytes)
+        if len(res) == 1:
+            r["pack_cold_s"] = _wall(lambda: pack_codes_host(
+                codes, pin_memory=True))
+        r["pack_warm_s"] = [_wall(lambda: pack_codes_host(
+            codes, pin_memory=True)) for _ in range(3)]
+        if len(res) == 1:
+            r["extract_first_s"] = _wall(lambda: extract_stream(codes, k,
+                                                                "cuda"))
+        r["extract_warm_s"] = [_wall(lambda: extract_stream(codes, k, "cuda"))
+                               for _ in range(3)]
+        r["uint8_path_s"] = [_wall(lambda: extract_canonical_kmers(
+            torch.from_numpy(codes).to("cuda"), k)) for _ in range(3)]
+        for c in CHUNKS:
+            r[f"extract_chunk_{c}_s"] = [_wall(lambda: extract_stream(
+                codes, k, "cuda", chunk_rows=c)) for _ in range(3)]
+        keys = extract_stream(codes, k, "cuda")
+        plain = extract_canonical_kmers(torch.from_numpy(codes).to("cuda"), k)
+        if not torch.equal(keys, plain) or not torch.equal(
+                extract_stream(codes, k, "cuda", chunk_rows=1 << 17), plain):
+            raise AssertionError(f"upload {label}: packed keys != uint8 path")
+        del keys, plain
+        packed, invalid, has_invalid = pack_codes_host(codes, pin_memory=True)
+        r.update(packed_bytes=packed.numel(), has_invalid=has_invalid,
+                 mask_bytes=invalid.numel() if has_invalid else 0)
+
+        def copies():
+            packed.to("cuda", non_blocking=True)
+            if has_invalid:
+                invalid.to("cuda", non_blocking=True)
+        r["pinned_copy_ms"] = _time_ms(copies, reps=10)
+        r["pageable_uint8_copy_ms"] = _time_ms(
+            lambda: torch.from_numpy(codes).to("cuda"), reps=10)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            extract_stream(codes, k, "cuda")
+            torch.cuda.synchronize()
+        r["htod"] = _htod_rows(prof)
+        ev = sorted((e for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA")
+                     and e.self_device_time_total > 0),
+                    key=lambda e: -e.self_device_time_total)
+        r["device_ms"] = sum(e.self_device_time_total for e in ev) / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            extract_canonical_kmers(torch.from_numpy(codes).to("cuda"), k)
+            torch.cuda.synchronize()
+        r["uint8_path_device_ms"] = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")) / 1e3
+        del packed, invalid
+        print(f"[upload {label}] {r['rows']} rows: uint8 {r['uint8_bytes']} B"
+              f" -> packed {r['packed_bytes']} B + mask {r['mask_bytes']} B "
+              f"(a code >= 4 in the real columns: {has_invalid})", flush=True)
+        print(f"[upload {label}] host packing into pinned tensors "
+              + (f"cold {r['pack_cold_s'] * 1e3:.2f} ms, "
+                 if "pack_cold_s" in r else "")
+              + "warm " + " / ".join(f"{x * 1e3:.2f}" for x in r["pack_warm_s"])
+              + " ms; extract_stream "
+              + (f"first {r['extract_first_s'] * 1e3:.2f} ms, "
+                 if "extract_first_s" in r else "")
+              + "warm " + " / ".join(f"{x * 1e3:.2f}"
+                                     for x in r["extract_warm_s"])
+              + " ms; in chunks of " + ", ".join(
+                  f"2^{c.bit_length() - 1} rows " + " / ".join(
+                      f"{x * 1e3:.2f}" for x in r[f"extract_chunk_{c}_s"])
+                  for c in CHUNKS)
+              + " ms; the uint8 path (pageable copy, no packing) "
+              + " / ".join(f"{x * 1e3:.2f}" for x in r["uint8_path_s"])
+              + " ms", flush=True)
+        print(f"[upload {label}] CUDA events: pinned copies "
+              f"{r['pinned_copy_ms']:.4f} ms, pageable uint8 copy "
+              f"{r['pageable_uint8_copy_ms']:.4f} ms; profiled call: device "
+              f"busy {r['device_ms']:.3f} ms (the uint8 path's "
+              f"{r['uint8_path_device_ms']:.3f} ms)", flush=True)
+        for e in ev[:14]:
+            print(f"[upload {label}]   {e.self_device_time_total / 1e3:8.3f} "
+                  f"ms x{e.count:<4d} {e.key[:110]}", flush=True)
+        _print_htod(f"upload {label}", r["htod"])
+    return res
+
+
+def phase_native_ingest(w, params, golden) -> dict:
+    """The CLI as a user runs it on a FASTQ: the legacy workload's real
+    reads written as FASTQ, then cli.main with --io native on the card
+    three times (a warm-up; a timed run with the compaction counters set
+    to 0 just before and read just after; a profiled run for its
+    host-to-device copies). Each run's contigs must give the legacy golden
+    SHA; the profiled run must upload the codes as pinned copies of
+    exactly the packed bytes: no mask and no pageable copy of 1 MiB or
+    more."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from genome_tpu_torch.assemble import cli
+    from genome_tpu_torch.io import read_fastx
+    from genome_tpu_torch.io.benchdata import (codes_to_reads, contigs_sha,
+                                               workload_key)
+    from genome_tpu_torch.kernels import compact
+    want = golden[workload_key(w, params.params_hash())]
+    n, L = w["num_reads"], w["read_len"]
+    with tempfile.TemporaryDirectory() as td:
+        fq = os.path.join(td, "reads.fastq")
+        t0 = time.perf_counter()
+        reads = codes_to_reads(w["err"], n)
+        step = 1 << 16
+        with open(fq, "w") as f:
+            for i in range(0, n, step):
+                f.write("".join(f"@r{j}\n{r}\n+\n{'I' * len(r)}\n"
+                                for j, r in enumerate(reads[i : i + step], i)))
+        del reads
+        print(f"[native ingest] wrote {n} reads as FASTQ "
+              f"({os.path.getsize(fq)} B) in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+
+        def run(tag):
+            out = os.path.join(td, f"{tag}.fasta")
+            m = os.path.join(td, f"{tag}.jsonl")
+            rc = []
+            wall = _wall(lambda: rc.append(cli.main([
+                fq, "-o", out, "--io", "native", "--device", "cuda",
+                "--quiet", "--metrics", m, "--k", str(params.k),
+                "--min-coverage", str(params.min_coverage)])))
+            if rc != [0]:
+                raise AssertionError(f"native ingest {tag}: the CLI gave {rc}")
+            sha = contigs_sha(read_fastx(out))
+            with open(m) as f:
+                ev = [json.loads(x) for x in f]
+            ph = {e["phase"]: e for e in ev if e["event"] == "phase_end"}
+            r = dict(e2e_s=wall, sha=sha, read_input_s=ph["read_input"][
+                "wall_s"], count_s=ph["count"]["wall_s"],
+                kmers_per_s=ph["count"]["kmers_per_s"],
+                n_windows=ph["count"]["n_windows"],
+                phases={p: e["wall_s"] for p, e in ph.items()})
+            print(f"[native ingest {tag}] e2e={wall:.4f} s read_input="
+                  f"{r['read_input_s']} s count={r['count_s']} s kmers_per_s="
+                  f"{r['kmers_per_s']} windows={r['n_windows']} " + " ".join(
+                      f"{p}={x}" for p, x in r["phases"].items())
+                  + f" sha={sha}", flush=True)
+            if sha != want:
+                raise AssertionError(f"native ingest {tag}: contig SHA {sha}"
+                                     f" != golden {want}")
+            if r["n_windows"] != n * (L - params.k + 1):
+                raise AssertionError(f"native ingest: {r['n_windows']} "
+                                     "windows, not the real reads' count")
+            return r
+
+        res = {"warm-up": run("warm-up")}
+        compact.reset_launches()
+        res["timed"] = run("timed")
+        launches = dict(compact.LAUNCHES)
+        missing = [s for s in compact.SITES
+                   if s != "tails" and not launches.get(s)]
+        print("[native ingest] launches="
+              f"{json.dumps(launches, sort_keys=True)}", flush=True)
+        if missing:
+            raise AssertionError(f"native ingest: no kernel launch at "
+                                 f"{missing}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res["profiled"] = run("profiled")
+        htod = _htod_rows(prof)
+    _print_htod("native ingest", htod)
+    packed = n * -(-L // 4)
+    if (sum(r["bytes"] for r in htod if r["kind"] == "Pinned") != packed
+            or any(r["kind"] != "Pinned" and r["bytes"] >= 1 << 20
+                   for r in htod)):
+        raise AssertionError(f"native ingest: the codes did not go up as "
+                             f"pinned copies of {packed} packed bytes: "
+                             f"{htod}")
+    res.update(launches=launches, htod=htod, packed_bytes=packed)
+    return res
 
 
 def phase_kernels(shapes, gen) -> list[dict]:
@@ -259,6 +508,7 @@ def phase_profile(w, params, wall_s: float) -> None:
     for e in ev[:12]:
         print(f"[profile legacy]   {e.self_device_time_total / 1e3:8.2f} ms "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    _print_htod("profile legacy", _htod_rows(prof))
 
 
 def phase_e2e(name, w, params, golden, counter="sort", ckpt=None) -> dict:
@@ -849,7 +1099,10 @@ def main() -> int:
           f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}",
           flush=True)
     t0 = time.perf_counter()
-    built = cubuild.build()
+    with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc builds
+        native = pool.submit(_build_native)
+        built = cubuild.build()
+        built["fastx_native (g++)"] = native.result()
     print(f"[build] {built} total {time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -857,6 +1110,7 @@ def main() -> int:
     from genome_tpu_torch.assemble.pipeline import count_reads, extract_stream
     params = AssemblyParams(k=21, min_coverage=2)
     legacy = bench_workload(1.0)
+    upload = phase_upload(legacy, params.k)
     cap = legacy["capacity"]
     n_unique = count_reads(legacy["err"], params, cap,
                            device="cuda")["n_unique_host"]
@@ -898,6 +1152,7 @@ def main() -> int:
     phase_e2e("legacy (warm-up)", legacy, params, golden)
     e2e = {"legacy": phase_e2e("legacy", legacy, params, golden)}
     phase_profile(legacy, params, e2e["legacy"]["wall_s"])
+    native = phase_native_ingest(legacy, params, golden)
     sorter = phase_sorter(legacy, params, golden)
     phase_e2e("legacy bucket", legacy, params, golden, counter="bucket")
     t0 = time.perf_counter()
@@ -968,6 +1223,7 @@ def main() -> int:
         hp_entry("digit_histogram", "hist", "pallas_hist.py:74"),
         hp_entry("partition_by_bucket", "partition", "partition.py:193")],
         "sort_pairs_merge": brows["sort_pairs_merge"],
+        "upload": upload, "native_ingest": native,
         "bitonic_split": brows["split"],
         "count_stream_skew": hp["skew"]}
     print(smi)

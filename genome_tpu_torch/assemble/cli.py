@@ -2,11 +2,13 @@
 
     python -m genome_tpu_torch.assemble.cli reads.fastq [more.fastq ...] \
         -o contigs.fasta --k 21 --min-coverage 2 [--device cuda|cpu] \
-        [--checkpoint-dir ck/ --resume] [--metrics run.jsonl] [--profile dir/]
+        [--io native|python] [--checkpoint-dir ck/ --resume] \
+        [--metrics run.jsonl] [--profile dir/]
 
-Same flags as the JAX CLI, with --counter sort|bucket|hashtable, except
-that --io offers only `python` (the native parser is not ported yet) and
-there is no golden backend (the JAX package keeps it).
+Same flags as the JAX CLI, with --counter sort|bucket|hashtable and
+--io native (default: the C++ parser into a code matrix, which is
+uploaded packed) or python (read strings), except that there is no
+golden backend (the JAX package keeps it).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+import numpy as np
 
 from genome_tpu_torch.assemble.checkpoint import (PhaseCheckpointer,
                                                   device_count, input_digest)
@@ -54,8 +58,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default), bucket-partition sort, or batched "
                         "open-addressing hash table (a parity oracle, far "
                         "slower than sort on large inputs)")
-    p.add_argument("--io", choices=["python"], default="python",
-                   help="input parser (pure Python)")
+    p.add_argument("--io", choices=["native", "python"], default="native",
+                   help="input parser: native C++ (default; built with g++ "
+                        "at first use, raises if it cannot be) or pure "
+                        "Python")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     p.add_argument("--checkpoint-dir", default=None,
@@ -68,6 +74,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dump a torch.profiler Chrome trace to this directory")
     p.add_argument("--quiet", action="store_true", help="suppress progress log")
     return p
+
+
+def _read_codes(paths) -> np.ndarray:
+    """The files' records as one uint8 code matrix, padded with 4 to the
+    longest record."""
+    from genome_tpu_torch.io.native import parse_fastx_codes
+    mats = [parse_fastx_codes(p) for p in paths]
+    if len(mats) == 1:
+        return mats[0]
+    L = max(m.shape[1] for m in mats)
+    out = np.full((sum(m.shape[0] for m in mats), L), 4, dtype=np.uint8)
+    at = 0
+    for m in mats:
+        out[at : at + m.shape[0], : m.shape[1]] = m
+        at += m.shape[0]
+    return out
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -87,16 +109,20 @@ def main(argv: list[str] | None = None) -> int:
     metrics = Metrics(path=args.metrics, quiet=args.quiet)
     t0 = time.perf_counter()
     try:
-        reads = []
-        for path in args.reads:
-            reads.extend(read_fastx(path))
+        if args.io == "native":
+            reads = _read_codes(args.reads)
+            n_reads, total_bp = len(reads), int(np.count_nonzero(reads < 4))
+        else:
+            reads = []
+            for path in args.reads:
+                reads.extend(read_fastx(path))
+            n_reads, total_bp = len(reads), sum(map(len, reads))
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    total_bp = sum(map(len, reads))
     metrics.log("phase_end", phase="read_input",
                 wall_s=round(time.perf_counter() - t0, 4),
-                n_reads=len(reads), total_bp=total_bp)
+                n_reads=n_reads, total_bp=total_bp)
     if args.counter == "hashtable" and total_bp > 5_000_000:
         print("warning: --counter hashtable is a parity oracle and much "
               "slower than --counter sort on an input this large",

@@ -1,11 +1,11 @@
 """Single-device assembly pipeline (port of
 genome_tpu/assemble/pipeline.py).
 
-reads -> codes (host) -> extract + count (device) -> graph build (device)
--> simplify fixpoint (device) -> final chain state (device) -> contigs
-(device ordering, host strings). Table capacity is a power of two with an
-overflow retry; every phase is timed through Metrics, checkpointed at its
-boundary, and optionally traced with torch.profiler.
+reads -> codes (host) -> packed upload -> extract + count (device) -> graph
+build (device) -> simplify fixpoint (device) -> final chain state (device)
+-> contigs (device ordering, host strings). Table capacity is a power of
+two with an overflow retry; every phase is timed through Metrics,
+checkpointed at its boundary, and optionally traced with torch.profiler.
 """
 
 from __future__ import annotations
@@ -25,8 +25,9 @@ from genome_tpu_torch.graph.contigs import emit_contigs_device
 from genome_tpu_torch.graph.simplify import final_chain_state, run_pass_inc
 from genome_tpu_torch.kernels.count import (count_kmers_device, filter_table,
                                             merge_tables)
-from genome_tpu_torch.kernels.extract import (extract_canonical_kmers,
-                                              pack_reads)
+from genome_tpu_torch.kernels.extract import (
+    extract_canonical_kmers, extract_canonical_kmers_packed,
+    extract_canonical_kmers_packed_nomask, pack_codes_host, pack_reads)
 from genome_tpu_torch.kernels.hash_table import count_kmers_hashtable
 from genome_tpu_torch.kernels.keys import SENTINEL
 from genome_tpu_torch.kernels.sort_bucket import (count_kmers_bucket,
@@ -62,19 +63,19 @@ def _counter_fn(counter: str, k: int, seg: int = 0):
 
 
 def extract_stream(reads, k: int, device="cuda", batch_reads: int = 65536,
-                   chunk_rows: int = 1 << 21) -> torch.Tensor:
+                   chunk_rows: int = 1 << 18) -> torch.Tensor:
     """Reads -> flat canonical int64 k-mer stream on `device`.
 
     `reads` is a list of strings (packed to uint8 codes in batches of
-    `batch_reads`) or a uint8 code matrix [R, L] (uploaded in chunks of
-    `chunk_rows` rows). Rows are uploaded as they are: no row or column
-    padding, so the stream holds exactly R * (L - k + 1) windows."""
+    `batch_reads`) or a uint8 code matrix [R, L] (packed and uploaded in
+    chunks of `chunk_rows` rows, see _extract_codes; the host packs a
+    chunk while the device extracts the one before, which chip_smoke.py's
+    `[upload]` lines time against one chunk). Rows are uploaded as they
+    are: no row or column padding, so the stream holds exactly
+    R * (L - k + 1) windows."""
     dev = resolve_device(device)
     if isinstance(reads, np.ndarray):
-        parts = [extract_canonical_kmers(
-                    torch.from_numpy(np.ascontiguousarray(
-                        reads[i : i + chunk_rows], dtype=np.uint8)).to(dev),
-                    k)
+        parts = [_extract_codes(reads[i : i + chunk_rows], k, dev)
                  for i in range(0, reads.shape[0], chunk_rows)]
     else:
         L = max((len(r) for r in reads), default=0)
@@ -85,6 +86,24 @@ def extract_stream(reads, k: int, device="cuda", batch_reads: int = 65536,
     if not parts:
         return torch.zeros(0, dtype=torch.int64, device=dev)
     return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _extract_codes(codes: np.ndarray, k: int,
+                   dev: torch.device) -> torch.Tensor:
+    """One chunk of a code matrix -> its keys. The native packer writes 4
+    codes a byte (and the validity mask) straight into host tensors,
+    pinned for a CUDA device, which are copied without blocking; the mask
+    is uploaded only when a real code is >= 4. Each chunk gets new pinned
+    tensors: the caching host allocator hands a block out again only
+    after the copy that read it has finished."""
+    cuda = dev.type == "cuda"
+    packed, invalid, has_invalid = pack_codes_host(codes, pin_memory=cuda)
+    packed = packed.to(dev, non_blocking=cuda)
+    L = codes.shape[1]
+    if not has_invalid:
+        return extract_canonical_kmers_packed_nomask(packed, k, L)
+    invalid = invalid.to(dev, non_blocking=cuda)
+    return extract_canonical_kmers_packed(packed, invalid, k, L)
 
 
 def count_reads(reads, params: AssemblyParams, capacity: int | None = None,
@@ -287,3 +306,11 @@ def run_pipeline(reads, params: AssemblyParams,
             info["total_bp"] = sum(map(len, contigs))
     stats["n_contigs"] = len(contigs)
     return {"contigs": contigs, "stats": stats}
+
+
+def assemble_device(reads, params: AssemblyParams | None = None,
+                    capacity: int | None = None, device="cuda") -> list[str]:
+    """reads -> sorted canonical contigs on `device`; equal to the golden
+    oracle's (SEMANTICS.md)."""
+    return run_pipeline(reads, params or AssemblyParams(), capacity=capacity,
+                        device=device)["contigs"]

@@ -1,6 +1,6 @@
 """FASTA/FASTQ reading + FASTA writing (reference analog: read ingestion,
-SURVEY.md §2.1 R1). Pure-Python streaming parser; a C++ fast path can be
-swapped in behind the same API (a later slice ports the native parser)."""
+SURVEY.md §2.1 R1). Pure-Python streaming parser; the C++ parser into a
+code matrix is io/native (the CLI's default)."""
 
 from __future__ import annotations
 

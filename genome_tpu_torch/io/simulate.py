@@ -109,3 +109,36 @@ def simulate_reads(
         s = _BASES[reads[i]].tobytes().decode("ascii")
         out.append(dna.revcomp_str(s) if flip[i] else s)
     return out
+
+
+def simulate_reads_diploid(
+    genome: str,
+    het_rate: float = 0.001,
+    read_len: int = 100,
+    coverage: float = 30.0,
+    error_rate: float = 0.0,
+    seed: int = 0,
+    rc_fraction: float = 0.5,
+) -> list[str]:
+    """Reads drawn half-and-half from two haplotypes differing at
+    ~het_rate substitution sites (diploid heterozygosity analog).
+
+    Every het site becomes a TRUE 50/50 bubble at assembly: both branches
+    carry matching coverage, so bubble popping exercises the value
+    tie-break pins (SEMANTICS §5) rather than the coverage criterion.
+    Deterministic per (genome, seed): the JAX package's RNG draws, in its
+    order."""
+    rng = np.random.default_rng(seed)
+    g1 = dna.encode(genome)
+    sites = rng.random(g1.size) < het_rate
+    bump = rng.integers(1, 4, size=g1.size).astype(np.uint8)
+    g2 = np.where(sites, (g1 + bump) % 4, g1)
+    hap1 = _BASES[g1].tobytes().decode("ascii")
+    hap2 = _BASES[g2].tobytes().decode("ascii")
+    r1 = simulate_reads(hap1, read_len=read_len, coverage=coverage / 2,
+                        error_rate=error_rate, seed=seed + 1,
+                        rc_fraction=rc_fraction)
+    r2 = simulate_reads(hap2, read_len=read_len, coverage=coverage / 2,
+                        error_rate=error_rate, seed=seed + 2,
+                        rc_fraction=rc_fraction)
+    return r1 + r2

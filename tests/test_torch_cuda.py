@@ -9,12 +9,15 @@ On a machine with the card:
 imports nothing of JAX, so the lane needs only torch there.
 """
 
+import numpy as np
 import pytest
 import torch
 
-from genome_tpu_torch.assemble.pipeline import run_pipeline
+from genome_tpu_torch.assemble import pipeline
+from genome_tpu_torch.assemble.pipeline import extract_stream, run_pipeline
 from genome_tpu_torch.io import random_genome, simulate_reads
 from genome_tpu_torch.kernels import bitonic, compact, hist, partition
+from genome_tpu_torch.kernels.extract import extract_canonical_kmers
 from genome_tpu_torch.kernels.keys import SENTINEL
 from genome_tpu_torch.kernels.mergesort import sort_pairs_merge
 from genome_tpu_torch.params import AssemblyParams
@@ -119,6 +122,65 @@ def test_pipeline_on_card_equals_cpu(cuda_device):
     assert got == run_pipeline(reads, params, device="cpu")["contigs"]
     assert all(compact.LAUNCHES[s] > 0 for s in compact.SITES
                if s != "tails")
+
+
+def _upload_codes(n_rate, seed, rows=300_001, L=101):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(rows, L), dtype=np.uint8)
+    codes[rng.random((rows, L)) < n_rate] = 4
+    return codes
+
+
+@pytest.fixture
+def pinned_uploads(monkeypatch):
+    """Records, for each chunk the pipeline packs, whether its host
+    tensors were pinned and whether the mask went along."""
+    seen = []
+    pack = pipeline.pack_codes_host
+
+    def spy(codes, pin_memory=False):
+        packed, invalid, has_invalid = pack(codes, pin_memory=pin_memory)
+        seen.append((packed.is_pinned() and invalid.is_pinned(),
+                     has_invalid))
+        return packed, invalid, has_invalid
+    monkeypatch.setattr(pipeline, "pack_codes_host", spy)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rate", [0.0, 0.001])
+def test_packed_uploads_equal_uint8_upload(cuda_device, pinned_uploads,
+                                           n_rate):
+    """Packed with the mask (N's), packed without it (none) and the plain
+    uint8 upload give one key stream, across four chunks (the last of one
+    row), from pinned host tensors; and the CPU's."""
+    codes = _upload_codes(n_rate, 7)
+    got = extract_stream(codes, 21, cuda_device, chunk_rows=100_000)
+    assert pinned_uploads == [
+        (True, bool((codes[i : i + 100_000] >= 4).any()))
+        for i in range(0, codes.shape[0], 100_000)]
+    assert any(m for _, m in pinned_uploads) == (n_rate > 0)
+    want = extract_canonical_kmers(torch.from_numpy(codes).to(cuda_device),
+                                   21)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), extract_stream(codes, 21, "cpu",
+                                                 chunk_rows=100_000))
+
+
+@pytest.mark.cuda
+def test_packed_upload_chunks_not_corrupted_by_buffer_reuse(
+        cuda_device, pinned_uploads):
+    """The stream waits behind a long sleep, so every chunk's copy is
+    still queued while the host packs the next chunks: a pinned block
+    handed out again before its copy ran would corrupt the keys."""
+    codes = _upload_codes(0.001, 8, rows=400_000)
+    want = extract_stream(codes, 21, "cpu", chunk_rows=50_000)
+    pinned_uploads.clear()
+    for _ in range(3):
+        torch.cuda._sleep(200_000_000)  # about 0.1 s of GPU cycles
+        got = extract_stream(codes, 21, cuda_device, chunk_rows=50_000)
+        assert torch.equal(got.cpu(), want)
+    assert len(pinned_uploads) == 24 and all(p for p, _ in pinned_uploads)
 
 
 def _bitonic_case(dev, block, nblocks, dtypes, fill, seed):

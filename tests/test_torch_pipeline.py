@@ -1,6 +1,9 @@
 """The port's reads -> contigs pipeline and CLI against the JAX package's
 run_pipeline and the golden NumPy oracle (contig sets equal exactly)."""
 
+import gzip
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -8,11 +11,16 @@ import torch
 from __graft_entry__ import _fixture_codes
 from genome_tpu.assemble.pipeline import run_pipeline as jax_run_pipeline
 from genome_tpu.golden import assemble_golden
+from genome_tpu.io import fixtures as jax_fixtures
 from genome_tpu.io.benchdata import codes_to_reads
-from genome_tpu_torch.assemble import cli
-from genome_tpu_torch.assemble.pipeline import run_pipeline
-from genome_tpu_torch.io import random_genome, read_fastx, simulate_reads
-from genome_tpu_torch.io.simulate import plant_repeats
+from genome_tpu.io.simulate import \
+    simulate_reads_diploid as jax_simulate_reads_diploid
+from genome_tpu_torch.assemble import cli, pipeline
+from genome_tpu_torch.assemble.pipeline import assemble_device, run_pipeline
+from genome_tpu_torch.io import (fixtures, random_genome, read_fastx,
+                                 simulate_reads)
+from genome_tpu_torch.io.simulate import plant_repeats, simulate_reads_diploid
+from genome_tpu_torch.kernels.extract import pack_reads
 from genome_tpu_torch.params import AssemblyParams
 
 
@@ -90,6 +98,8 @@ def test_cuda_device_raises_without_card():
         run_pipeline(reads, params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_pipeline(reads, params, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        assemble_device(reads, params)
 
 
 def test_unported_counter_raises():
@@ -122,3 +132,97 @@ def test_count_phase_reports_windows():
     assert res["stats"]["n_windows"] == codes.shape[0] * (codes.shape[1] - 20)
     assert res["stats"]["n_contigs"] == len(res["contigs"])
     assert np.all([len(c) >= 21 for c in res["contigs"]])
+
+
+def _fastq_text(reads, start=0):
+    return "".join(f"@r{start + i}\n{r}\n+\n{'I' * len(r)}\n"
+                   for i, r in enumerate(reads))
+
+
+@pytest.mark.parametrize("io", ["native", "python"])
+def test_cli_io_native_and_python_give_golden(tmp_path, io):
+    """Two inputs, one gzipped and of shorter reads (the native matrices
+    are padded to the longest record), through each parser."""
+    reads, params = _case("sim3kb")
+    half = len(reads) // 2
+    short = [r[:90] for r in reads[half:]]
+    (tmp_path / "a.fastq").write_text(_fastq_text(reads[:half]))
+    with gzip.open(tmp_path / "b.fastq.gz", "wt") as f:
+        f.write(_fastq_text(short, half))
+    out, m = tmp_path / "contigs.fasta", tmp_path / "m.jsonl"
+    argv = [str(tmp_path / "a.fastq"), str(tmp_path / "b.fastq.gz"), "-o",
+            str(out), "--device", "cpu", "--quiet", "--metrics", str(m)]
+    assert cli.main(argv + ["--io", io]) == 0
+    assert read_fastx(out) == assemble_golden(reads[:half] + short, params)
+    ev = [json.loads(x) for x in m.read_text().splitlines()]
+    read_input = next(e for e in ev if e.get("phase") == "read_input")
+    assert read_input["n_reads"] == len(reads)
+    assert read_input["total_bp"] == sum(map(len, reads[:half] + short))
+
+
+@pytest.mark.parametrize("with_n", [False, True])
+def test_code_matrix_upload_variants_give_golden(monkeypatch, with_n):
+    """A code matrix with no N takes the mask-free upload, one with N's
+    the masked one; both give the golden contigs."""
+    reads, params = _case("sim3kb")
+    codes = pack_reads(reads)
+    if with_n:
+        rng = np.random.default_rng(5)
+        codes[rng.random(codes.shape) < 0.002] = 4
+        reads = codes_to_reads(codes, codes.shape[0])
+    calls = []
+
+    def spy(name):
+        fn = getattr(pipeline, name)
+
+        def wrapped(*args):
+            calls.append(name)
+            return fn(*args)
+        monkeypatch.setattr(pipeline, name, wrapped)
+    spy("extract_canonical_kmers_packed")
+    spy("extract_canonical_kmers_packed_nomask")
+    got = run_pipeline(codes, params, device="cpu")
+    assert calls == ["extract_canonical_kmers_packed" if with_n
+                     else "extract_canonical_kmers_packed_nomask"]
+    assert got["contigs"] == assemble_golden(reads, params)
+    assert got["stats"]["n_windows"] == codes.shape[0] * (codes.shape[1] - 20)
+
+
+@pytest.mark.parametrize("seed", [101, 202, 303, 404, 505, 606])
+def test_parity_seed_sweep(seed):
+    """The JAX package's content fuzz through the port: random (genome,
+    error) draws at k = 15, device == golden on every one."""
+    params = AssemblyParams(k=15, min_coverage=2)
+    err = (seed % 3) * 0.008  # 0 / 0.8% / 1.6%
+    reads = simulate_reads(random_genome(1800, seed=seed), read_len=80,
+                           coverage=18, error_rate=err, seed=seed + 7)
+    assert assemble_device(reads, params, device="cpu") == \
+        assemble_golden(reads, params), (seed, err)
+
+
+def test_diploid_het_bubbles_match_jax_reads_and_golden():
+    """True 50/50 het-SNP bubbles (coverage-tied: popping takes the value
+    tie-break, SEMANTICS §5): the port draws JAX's reads and assembles
+    the golden contigs."""
+    g = random_genome(20_000, seed=51)
+    kw = dict(het_rate=0.002, read_len=100, coverage=30, error_rate=0.001,
+              seed=52)
+    reads = simulate_reads_diploid(g, **kw)
+    assert reads == jax_simulate_reads_diploid(g, **kw)
+    params = AssemblyParams(k=21, min_coverage=2)
+    got = assemble_device(reads, params, device="cpu")
+    assert got == assemble_golden(reads, params) and got
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--repeats"], ["--het", "0.003", "--error-rate", "0.01"],
+    ["--circular", "--gc", "0.6", "--read-len", "50"]])
+def test_fixtures_cli_writes_jax_bytes(tmp_path, flags):
+    argv = ["--genome-len", "8000", "--coverage", "5", "--seed", "3"] + flags
+    for mod, tag in ((fixtures, "port"), (jax_fixtures, "jax")):
+        assert mod.main(argv + ["-o", str(tmp_path / f"{tag}.fastq"),
+                                "--truth", str(tmp_path / f"{tag}.fa")]) == 0
+    for ext in ("fastq", "fa"):
+        port = (tmp_path / f"port.{ext}").read_bytes()
+        assert port and port == (tmp_path / f"jax.{ext}").read_bytes()
+    assert read_fastx(tmp_path / "port.fastq")
