@@ -61,13 +61,28 @@ Phases (any failure exits non-zero and prints no result line):
        the CLI (cli.main, --io native) three times: the walls, every
        compaction site launched, and pinned host-to-device copies of
        exactly the packed codes (no mask, no pageable copy of 1 MiB or
-       more).
+       more);
+  4. the hash-sharded path (genome_tpu_torch/dist) on a NCCL group of one
+     rank: sharded_count of the legacy window stream equal to
+     count_kmers_device's table (compact_flagged launched at count_heads
+     and count_filter), the count exchange's all_to_all_single timed with
+     CUDA events (at P = 1 a copy on the card), and assemble_sharded on
+     legacy and repeats: a warm-up that keeps compact_flagged's inputs at
+     each of its sites, each held against the plain version and timed at
+     the path's own shapes (the count at the routed bucket length and
+     capacity 2^27, the simplify on the gathered graph), then a timed run
+     (golden SHAs, phase walls, peak device bytes, the exchange ledger,
+     and a launch at every compaction site of the path).
+Every profiled block runs under _profiled, which keeps it away from the
+ends of its profiler session and fails when the trace lacks a device
+record of a launch, copy or memset.
 The last two lines are a {"kernels": [...]} summary and
 {"ok": true, "device": {...}}. Imports nothing of JAX or genome_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -83,6 +98,19 @@ OPS_PER_S = 67e12
 REPEATS = 20
 BLOCK = 65536  # sort_pairs_merge's default block
 CHUNKS = (1 << 21, 1 << 19, 1 << 18, 1 << 17)  # extract_stream chunk_rows
+# torch.profiler on the card loses the device records of a session's
+# first calls (scripts/torch_profiler_probe.py and this script's runs,
+# H100 80GB HBM3, 700 W): 9 of 234 sessions that did not wait lost
+# records of work done in their first 11 ms, and in this script's
+# process, from the dist phase on, every session lost the records of its
+# first three calls, however long it waited. So _profiled opens each session
+# with a prologue of device calls whose records it does not need, waits
+# _PROFILE_MARGIN_S, runs the block, waits again, and takes only the
+# block's calls: each must have its device record in the trace.
+_PROFILE_MARGIN_S = 0.2
+_PROLOGUE_ROUNDS = 8  # a pinned copy, a kernel and a fill each
+_DEVICE_CALLS = ("cudaLaunchKernel", "cudaMemcpy", "cudaMemset",
+                 "cuLaunchKernel", "cuMemcpy", "cuMemset")
 
 
 def _smi() -> str:
@@ -180,22 +208,90 @@ def _build_native() -> float:
     return time.perf_counter() - t0
 
 
-def _htod_rows(prof) -> list[dict]:
-    """Every host-to-device copy of a profiled run, from its Chrome trace:
-    kind (Pinned or Pageable), bytes and device time."""
+@contextlib.contextmanager
+def _profiled(label):
+    """torch.profiler (CPU and CUDA activities) around the block, after a
+    prologue (see _PROFILE_MARGIN_S). Yields a namespace that holds, after
+    the block, `prof` and `rows`: the device records (kernels, copies,
+    memsets) of the block's own host calls, in time order, each a dict of
+    name, cat, dur (us) and args. Raises if one of those calls has no
+    device record."""
+    import types
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    out = types.SimpleNamespace()
+    host = torch.zeros(1024, dtype=torch.uint8).pin_memory()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(_PROLOGUE_ROUNDS):
+            host.to("cuda", non_blocking=True).add_(1).zero_()
+        torch.cuda.synchronize()
+        time.sleep(_PROFILE_MARGIN_S)
+        with record_function("_profiled block"):
+            yield out
+            torch.cuda.synchronize()
+        time.sleep(_PROFILE_MARGIN_S)
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    rows = []
-    for e in events:
-        name = e.get("name", "")
-        if e.get("cat") == "gpu_memcpy" and "HtoD" in name:
+    out.prof = prof
+    out.rows = _block_rows(label, events)
+
+
+def _block_rows(label, events) -> list[dict]:
+    """The device records of the host calls inside the trace's "_profiled
+    block" annotation, in time order; raises if one has none."""
+    block = next(e for e in events if e.get("name") == "_profiled block"
+                 and e.get("cat") == "user_annotation")
+    device = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    calls = [e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and e["name"].startswith(_DEVICE_CALLS)]
+    inside = [e for e in calls
+              if block["ts"] <= e["ts"] <= block["ts"] + block["dur"]]
+    lost = [f"{e['name']} at {(e['ts'] - block['ts']) / 1e3:.3f} ms"
+            for e in inside if e["args"].get("correlation") not in device]
+    before = [e for e in calls if e["ts"] < block["ts"]]
+    lost_before = sum(e["args"].get("correlation") not in device
+                      for e in before)
+    print(f"[{label}] profiler: {len(inside)} launches, copies and memsets "
+          f"in the block, {len(lost)} without a device record; the "
+          f"prologue's {len(before)} lost {lost_before}", flush=True)
+    if lost:
+        raise AssertionError(f"[{label}] the profiler's trace lacks the "
+                             f"device record of {len(lost)} of the block's "
+                             f"host calls (time from its start): {lost[:8]}")
+    return sorted((device[c] for e in inside
+                   if (c := e["args"].get("correlation")) in device),
+                  key=lambda e: e["ts"])
+
+
+def _by_name(rows) -> list[tuple[str, float, int]]:
+    """(name, device ms, records) of each name in `rows`, the most device
+    time first."""
+    agg: dict = {}
+    for e in rows:
+        ms, n = agg.get(e["name"], (0.0, 0))
+        agg[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    return sorted(((k, ms, n) for k, (ms, n) in agg.items()),
+                  key=lambda x: -x[1])
+
+
+def _htod_rows(rows) -> list[dict]:
+    """Every host-to-device copy of a profiled block (`rows` of
+    _profiled): kind (Pinned or Pageable), bytes and device time."""
+    out = []
+    for e in rows:
+        name = e["name"]
+        if e["cat"] == "gpu_memcpy" and "HtoD" in name:
             kind = next((k for k in ("Pinned", "Pageable") if k in name), name)
-            rows.append(dict(kind=kind, bytes=int(e["args"]["bytes"]),
-                             ms=e["dur"] / 1e3))
-    return rows
+            out.append(dict(kind=kind, bytes=int(e["args"]["bytes"]),
+                            ms=e["dur"] / 1e3))
+    return out
 
 
 def _print_htod(label, rows) -> None:
@@ -229,7 +325,6 @@ def phase_upload(w, k) -> dict:
     call's host-to-device copies from the profiler. The keys must equal
     the uint8 path's."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from genome_tpu_torch.assemble.pipeline import extract_stream
     from genome_tpu_torch.kernels.extract import (extract_canonical_kmers,
                                                   pack_codes_host)
@@ -270,21 +365,14 @@ def phase_upload(w, k) -> dict:
         r["pinned_copy_ms"] = _time_ms(copies, reps=10)
         r["pageable_uint8_copy_ms"] = _time_ms(
             lambda: torch.from_numpy(codes).to("cuda"), reps=10)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with _profiled(f"upload {label}") as p:
             extract_stream(codes, k, "cuda")
-            torch.cuda.synchronize()
-        r["htod"] = _htod_rows(prof)
-        ev = sorted((e for e in prof.key_averages()
-                     if str(e.device_type).endswith("CUDA")
-                     and e.self_device_time_total > 0),
-                    key=lambda e: -e.self_device_time_total)
-        r["device_ms"] = sum(e.self_device_time_total for e in ev) / 1e3
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r["htod"] = _htod_rows(p.rows)
+        ev = _by_name(p.rows)
+        r["device_ms"] = sum(ms for _, ms, _ in ev)
+        with _profiled(f"upload {label} uint8") as p:
             extract_canonical_kmers(torch.from_numpy(codes).to("cuda"), k)
-            torch.cuda.synchronize()
-        r["uint8_path_device_ms"] = sum(
-            e.self_device_time_total for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")) / 1e3
+        r["uint8_path_device_ms"] = sum(ms for _, ms, _ in _by_name(p.rows))
         del packed, invalid
         print(f"[upload {label}] {r['rows']} rows: uint8 {r['uint8_bytes']} B"
               f" -> packed {r['packed_bytes']} B + mask {r['mask_bytes']} B "
@@ -310,9 +398,9 @@ def phase_upload(w, k) -> dict:
               f"{r['pageable_uint8_copy_ms']:.4f} ms; profiled call: device "
               f"busy {r['device_ms']:.3f} ms (the uint8 path's "
               f"{r['uint8_path_device_ms']:.3f} ms)", flush=True)
-        for e in ev[:14]:
-            print(f"[upload {label}]   {e.self_device_time_total / 1e3:8.3f} "
-                  f"ms x{e.count:<4d} {e.key[:110]}", flush=True)
+        for name, ms, n in ev[:14]:
+            print(f"[upload {label}]   {ms:8.3f} ms x{n:<4d} {name[:110]}",
+                  flush=True)
         _print_htod(f"upload {label}", r["htod"])
     return res
 
@@ -326,8 +414,6 @@ def phase_native_ingest(w, params, golden) -> dict:
     SHA; the profiled run must upload the codes as pinned copies of
     exactly the packed bytes: no mask and no pageable copy of 1 MiB or
     more."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from genome_tpu_torch.assemble import cli
     from genome_tpu_torch.io import read_fastx
     from genome_tpu_torch.io.benchdata import (codes_to_reads, contigs_sha,
@@ -392,10 +478,9 @@ def phase_native_ingest(w, params, golden) -> dict:
         if missing:
             raise AssertionError(f"native ingest: no kernel launch at "
                                  f"{missing}")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _profiled("native ingest") as p:
             res["profiled"] = run("profiled")
-        htod = _htod_rows(prof)
+        htod = _htod_rows(p.rows)
     _print_htod("native ingest", htod)
     packed = n * -(-L // 4)
     if (sum(r["bytes"] for r in htod if r["kind"] == "Pinned") != packed
@@ -408,6 +493,36 @@ def phase_native_ingest(w, params, golden) -> dict:
     return res
 
 
+def _shape_row(label, site, flags, arrays, cap) -> dict:
+    """compact_flagged against its plain version on one site's inputs,
+    then the kernel, the plain version and the library call timed, beside
+    the bound."""
+    from genome_tpu_torch.kernels.compact import (compact_flagged,
+                                                  compact_flagged_ref)
+    n = flags.numel()
+    err, total = _compare(flags, arrays, cap)
+    kept = min(total, cap)
+    bound = _bound_bytes(flags, arrays, cap) / HBM_BYTES_PER_S * 1e3
+    sector_bound = (_bound_bytes(flags, arrays, cap, sector=32)
+                    / HBM_BYTES_PER_S * 1e3)
+    ms = _time_ms(lambda: compact_flagged(flags, arrays, cap))
+    plain = _time_ms(lambda: compact_flagged_ref(flags, arrays, cap))
+
+    def library():
+        idx = flags.nonzero()
+        return [a[flags] for a in arrays], idx
+    lib = _time_ms(library)
+    print(f"[{label}] {site:13s} n={n:>10d} cap={cap:>9d} "
+          f"kept={kept:>9d} kernel={ms:8.3f} ms plain={plain:8.3f} ms "
+          f"bound={bound:7.4f} ms (32 B sectors {sector_bound:7.4f} ms) "
+          f"library={lib:8.3f} ms", flush=True)
+    return dict(site=site, n=n, payload_bytes=[
+                    a.element_size() for a in arrays],
+                capacity=cap, total=total, max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                sector_bound_ms=sector_bound, library_ms=lib)
+
+
 def phase_kernels(shapes, gen) -> list[dict]:
     """Kernel vs plain version at edge cases and at the main path's shapes
     (`shapes`: (site, make_inputs, capacity)), each shape timed; one call
@@ -415,8 +530,7 @@ def phase_kernels(shapes, gen) -> list[dict]:
     per call at compact_ids."""
     import torch
     from genome_tpu_torch.kernels import cubuild
-    from genome_tpu_torch.kernels.compact import (compact_flagged,
-                                                  compact_flagged_ref)
+    from genome_tpu_torch.kernels.compact import compact_flagged
 
     i32, i64 = torch.int32, torch.int64
     tile = int(cubuild.load("compact").compact_tile_size())
@@ -443,30 +557,9 @@ def phase_kernels(shapes, gen) -> list[dict]:
     rows = []
     for site, make_inputs, cap in shapes:
         flags, arrays = make_inputs()
-        n = flags.numel()
-        err, total = _compare(flags, arrays, cap)
-        kept = min(total, cap)
-        bound = _bound_bytes(flags, arrays, cap) / HBM_BYTES_PER_S * 1e3
-        sector_bound = (_bound_bytes(flags, arrays, cap, sector=32)
-                        / HBM_BYTES_PER_S * 1e3)
-        ms = _time_ms(lambda: compact_flagged(flags, arrays, cap))
-        plain = _time_ms(lambda: compact_flagged_ref(flags, arrays, cap))
-
-        def library():
-            idx = flags.nonzero()
-            return [a[flags] for a in arrays], idx
-        lib = _time_ms(library)
-        row = dict(site=site, n=n, payload_bytes=[
-                       a.element_size() for a in arrays],
-                   capacity=cap, total=total, max_abs_err=err, ms=ms,
-                   plain_ms=plain, bound_ms=bound, bound_by="bytes",
-                   sector_bound_ms=sector_bound, library_ms=lib)
+        row = _shape_row("kernels", site, flags, arrays, cap)
         rows.append(row)
-        print(f"[kernels] {site:13s} n={n:>10d} cap={cap:>9d} "
-              f"kept={kept:>9d} kernel={ms:8.3f} ms plain={plain:8.3f} ms "
-              f"bound={bound:7.4f} ms (32 B sectors {sector_bound:7.4f} ms) "
-              f"library={lib:8.3f} ms",
-              flush=True)
+        ms, lib = row["ms"], row["library_ms"]
         if site in ("count_heads", "compact_ids"):
             row["split"] = _device_split(
                 f"compact {site}", lambda: compact_flagged(flags, arrays, cap))
@@ -483,32 +576,26 @@ def phase_kernels(shapes, gen) -> list[dict]:
     return rows
 
 
-def phase_profile(w, params, wall_s: float) -> None:
-    """One more legacy run under torch.profiler: the device time by kernel,
-    and the idle share against `wall_s`, the same run's unprofiled wall
-    (the profiler's own start-up inflates the profiled wall)."""
+def phase_profile(label, fn, wall_s: float) -> dict:
+    """One more run of `fn` under torch.profiler: the device time by
+    kernel, and the idle share against `wall_s`, the same run's unprofiled
+    wall (the profiler's own start-up inflates the profiled wall)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from genome_tpu_torch.assemble.pipeline import run_pipeline
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        run_pipeline(w["err"], params, capacity=w["capacity"], device="cuda")
+    with _profiled(label) as p:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    ev = [e for e in prof.key_averages()  # kernel rows only: no double count
-          if str(e.device_type).endswith("CUDA")
-          and e.self_device_time_total > 0]
-    ev.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
-    print(f"[profile legacy] device busy={busy_ms:.1f} ms; unprofiled wall="
-          f"{wall_s * 1e3:.1f} ms idle_share={1 - busy_ms / (wall_s * 1e3):.3f}"
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = _by_name(p.rows)
+    busy_ms = sum(ms for _, ms, _ in ev)
+    idle = 1 - busy_ms / (wall_s * 1e3)
+    print(f"[{label}] device busy={busy_ms:.1f} ms; unprofiled wall="
+          f"{wall_s * 1e3:.1f} ms idle_share={idle:.3f}"
           f" (profiled wall {wall_ms:.1f} ms)", flush=True)
-    for e in ev[:12]:
-        print(f"[profile legacy]   {e.self_device_time_total / 1e3:8.2f} ms "
-              f"x{e.count:<5d} {e.key[:90]}", flush=True)
-    _print_htod("profile legacy", _htod_rows(prof))
+    for name, ms, n in ev[:12]:
+        print(f"[{label}]   {ms:8.2f} ms x{n:<5d} {name[:90]}", flush=True)
+    _print_htod(label, _htod_rows(p.rows))
+    return dict(device_busy_ms=busy_ms, idle_share=idle)
 
 
 def phase_e2e(name, w, params, golden, counter="sort", ckpt=None) -> dict:
@@ -612,21 +699,16 @@ def _launch_split(label, fn, reps: int = 3) -> list[dict]:
     """Device time of each __global__ launch of one call of `fn`, in launch
     order (the mean over `reps` profiled calls after a warm-up)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _profiled(label) as p:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    ev = sorted((e for e in prof.events()
-                 if str(e.device_type).endswith("CUDA")
-                 and e.time_range.elapsed_us() > 0),
-                key=lambda e: e.time_range.start)
+    ev = p.rows
     per = len(ev) // reps
-    split = [dict(kernel=ev[i].name, ms=sum(
-        ev[i + c * per].time_range.elapsed_us() for c in range(reps))
-        / reps / 1e3) for i in range(per)]
+    split = [dict(kernel=ev[i]["name"], ms=sum(
+        ev[i + c * per]["dur"] for c in range(reps)) / reps / 1e3)
+        for i in range(per)]
     print(f"[{label}] device time per __global__ launch, in order "
           f"({len(ev)} launches in {reps} calls): " + "; ".join(
               f"{s['kernel'][:48]} {s['ms']:.4f} ms" for s in split)
@@ -869,20 +951,15 @@ def _device_split(label, fn, reps: int = 3, counts=None) -> dict:
     {kernel name: ms}, printed. `counts`, a dict, if given, receives each
     kernel's launches per call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _profiled(label) as p:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if str(e.device_type).endswith("CUDA")
-          and e.self_device_time_total > 0]
-    ev.sort(key=lambda e: -e.self_device_time_total)
-    split = {e.key: e.self_device_time_total / 1e3 / reps for e in ev}
+    ev = _by_name(p.rows)
+    split = {name: ms / reps for name, ms, _ in ev}
     if counts is not None:
-        counts.update({e.key: e.count / reps for e in ev})
+        counts.update({name: n / reps for name, _, n in ev})
     print(f"[{label}] device time per call by kernel: " + "; ".join(
         f"{k[:40]} {ms:.4f} ms" for k, ms in list(split.items())[:6]),
         flush=True)
@@ -1082,6 +1159,163 @@ def phase_sorter(w, params, golden) -> dict:
                 default_count_wall_s=wall_default, sha=e2e["sha"])
 
 
+DIST_SITES = ("count_heads", "count_filter", "tips", "bubbles", "kills",
+              "contig_starts")  # compact_flagged sites of the dist path
+
+
+@contextlib.contextmanager
+def _capture_compact():
+    """While open, every call of compact_flagged from the port keeps a
+    copy of its inputs (flags, payloads, capacity) at the first call of
+    each site: yields {site: inputs}. Every module of the port that holds
+    the wrapper by name gets a recording one, then the wrapper back."""
+    from genome_tpu_torch.kernels import compact
+    orig = compact.compact_flagged
+    got = {}
+
+    def recording(flags, arrays, capacity, site="direct"):
+        if site not in got:
+            got[site] = (flags.clone(), tuple(a.clone() for a in arrays),
+                         capacity)
+        return orig(flags, arrays, capacity, site=site)
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("genome_tpu_torch")
+            and getattr(m, "compact_flagged", None) is orig]
+    for m in mods:
+        m.compact_flagged = recording
+    try:
+        yield got
+    finally:
+        for m in mods:
+            m.compact_flagged = orig
+
+
+def _dist_e2e(name, w, params, golden) -> dict:
+    """assemble_sharded on a one-rank NCCL group: a warm-up that keeps
+    compact_flagged's inputs at each site, each held against the plain
+    version and timed (the dist path's own shapes: the count at the routed
+    bucket length and capacity 2^27, the simplify on the gathered graph),
+    then a timed run with the launch counters set to 0 just before it; the
+    golden SHA, per-phase walls, peak device bytes, the exchange ledger."""
+    import torch
+    from genome_tpu_torch.assemble.metrics import Metrics
+    from genome_tpu_torch.dist import assemble_sharded
+    from genome_tpu_torch.io.benchdata import contigs_sha, workload_key
+    from genome_tpu_torch.kernels import compact
+
+    want = golden.get(workload_key(w, params.params_hash()))
+    if want is None:
+        raise AssertionError(f"dist {name}: no golden SHA cached")
+    with _capture_compact() as inputs:
+        assemble_sharded(w["err"], params, device="cuda")  # warm-up
+    missing = [s for s in DIST_SITES if s not in inputs]
+    if missing:
+        raise AssertionError(f"dist {name}: no compact_flagged call at "
+                             f"{missing}")
+    shapes = [_shape_row(f"dist {name} kernels", site, *inputs.pop(site))
+              for site in [s for s in compact.SITES if s in inputs]]
+    del inputs
+    m = Metrics(quiet=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    compact.reset_launches()
+    t0 = time.perf_counter()
+    contigs = assemble_sharded(w["err"], params, metrics=m, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(compact.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    sha = contigs_sha(contigs)
+    ends = {e["phase"]: e for e in m.events if e["event"] == "phase_end"}
+    ledger = next(e for e in m.events if e["event"] == "exchange_ledger")
+    ledger = {k: v for k, v in ledger.items() if k not in ("ts", "event")}
+    print(f"[dist {name}] P=1 NCCL wall={wall:.4f} s "
+          + " ".join(f"{p}={e['wall_s']:.4f}s" for p, e in ends.items())
+          + f" peak_mem_bytes={peak} contigs={len(contigs)}", flush=True)
+    skip = ("ts", "event", "phase", "wall_s")
+    info = {p: {k: v for k, v in e.items() if k not in skip}
+            for p, e in ends.items()}
+    print(f"[dist {name}] phase info {json.dumps(info)}", flush=True)
+    print(f"[dist {name}] ledger={json.dumps(ledger)}", flush=True)
+    print(f"[dist {name}] launches={json.dumps(launches, sort_keys=True)}",
+          flush=True)
+    print(f"[dist {name}] sha={sha} golden={want}", flush=True)
+    if sha != want:
+        raise AssertionError(f"dist {name}: contig SHA {sha} != golden {want}")
+    missing = [s for s in DIST_SITES if launches.get(s, 0) == 0]
+    if missing:
+        raise AssertionError(f"dist {name}: no kernel launch at {missing}")
+    return dict(wall_s=wall, peak_mem_bytes=peak, launches=launches, sha=sha,
+                phases={p: e["wall_s"] for p, e in ends.items()},
+                ledger=ledger, compact_shapes=shapes)
+
+
+def phase_dist(legacy, repeats, params, golden, smi: str) -> dict:
+    """The hash-sharded path on a NCCL group of one rank on cuda:0: the
+    sharded count of the legacy stream equal to count_kmers_device's table
+    (compact_flagged launched at count_heads and count_filter), the count
+    exchange's all_to_all_single timed (at P = 1 a local copy), then
+    assemble_sharded on legacy and repeats with their golden SHAs."""
+    import torch
+    import torch.distributed as dist
+    from genome_tpu_torch.assemble.pipeline import extract_stream
+    from genome_tpu_torch.dist import assemble_sharded
+    from genome_tpu_torch.dist.count import sharded_count
+    from genome_tpu_torch.dist.mesh import all_to_all_rows, init_group
+    from genome_tpu_torch.kernels import compact
+    from genome_tpu_torch.kernels.count import count_kmers_device
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dev = init_group(0, 1, f"file://{tmp}/rendezvous", device="cuda")
+        try:
+            stream = extract_stream(legacy["err"], params.k, dev)
+            cap = legacy["capacity"]
+            bucket_cap = max(64, int(1.3 * stream.numel()) + 64)
+            want = count_kmers_device(stream, params.min_coverage, cap)
+            compact.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = sharded_count(stream, params.min_coverage, bucket_cap, cap)
+            torch.cuda.synchronize()
+            count_s = time.perf_counter() - t0
+            launches = dict(compact.LAUNCHES)
+            for key in ("table", "counts", "n_unique"):
+                if not torch.equal(got[key], want[key]):
+                    raise AssertionError(
+                        f"dist: sharded count {key} != count_kmers_device's")
+            if got["overflow"] or bool(want["overflow"]):
+                raise AssertionError("dist: count overflowed its capacity")
+            print(f"[dist count] legacy P=1: sharded_count table == "
+                  f"count_kmers_device table (n_unique="
+                  f"{int(got['n_unique'])}, capacity {cap}, bucket_cap "
+                  f"{bucket_cap}); wall {count_s:.4f} s; launches="
+                  f"{json.dumps(launches, sort_keys=True)}", flush=True)
+            for site in ("count_heads", "count_filter"):
+                if launches.get(site, 0) == 0:
+                    raise AssertionError(f"dist count: no launch at {site}")
+            del got, want, stream
+            buf = torch.full((1, bucket_cap), 7, dtype=torch.int64,
+                             device=dev)
+            a2a_ms = _time_ms(lambda: all_to_all_rows(buf))
+            a2a_bytes = buf.numel() * buf.element_size()
+            del buf
+            print(f"[dist a2a] count exchange all_to_all_single [1, "
+                  f"{bucket_cap}] int64, {a2a_bytes} bytes: {a2a_ms:.4f} ms "
+                  f"(CUDA events, {REPEATS} calls; at P = 1 NCCL copies the "
+                  f"buffer on the card, nothing crosses a link) | {smi}",
+                  flush=True)
+            e2e = {"legacy": _dist_e2e("legacy", legacy, params, golden),
+                   "repeats": _dist_e2e("repeats", repeats, params, golden)}
+            e2e["legacy"]["profile"] = phase_profile(
+                "dist profile legacy", lambda: assemble_sharded(
+                    legacy["err"], params, device="cuda"),
+                e2e["legacy"]["wall_s"])
+        finally:
+            dist.destroy_process_group()
+    return dict(count_launches=launches, count_wall_s=count_s,
+                a2a_ms=a2a_ms, a2a_bytes=a2a_bytes, e2e=e2e)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1107,7 +1341,8 @@ def main() -> int:
           flush=True)
 
     # ---- phase 2: kernel vs plain version at the main path's shapes ----
-    from genome_tpu_torch.assemble.pipeline import count_reads, extract_stream
+    from genome_tpu_torch.assemble.pipeline import (count_reads, extract_stream,
+                                                    run_pipeline)
     params = AssemblyParams(k=21, min_coverage=2)
     legacy = bench_workload(1.0)
     upload = phase_upload(legacy, params.k)
@@ -1151,7 +1386,9 @@ def main() -> int:
         golden = json.load(f)
     phase_e2e("legacy (warm-up)", legacy, params, golden)
     e2e = {"legacy": phase_e2e("legacy", legacy, params, golden)}
-    phase_profile(legacy, params, e2e["legacy"]["wall_s"])
+    phase_profile("profile legacy", lambda: run_pipeline(
+        legacy["err"], params, capacity=legacy["capacity"], device="cuda"),
+        e2e["legacy"]["wall_s"])
     native = phase_native_ingest(legacy, params, golden)
     sorter = phase_sorter(legacy, params, golden)
     phase_e2e("legacy bucket", legacy, params, golden, counter="bucket")
@@ -1159,10 +1396,13 @@ def main() -> int:
     phase_e2e("legacy hashtable", legacy, params, golden, counter="hashtable")
     print(f"[e2e] hashtable run took {time.perf_counter() - t0:.1f} s",
           flush=True)
-    del legacy
     repeats = bench_workload(1.0, repeats=True)
     e2e["repeats"] = phase_e2e("repeats", repeats, params, golden)
     phase_e2e("repeats bucket", repeats, params, golden, counter="bucket")
+
+    # ---- phase 4: the hash-sharded path, one rank ----
+    dist_res = phase_dist(legacy, repeats, params, golden, smi)
+    del legacy, repeats
     launches = {s: sum(r["launches"].get(s, 0) for r in e2e.values())
                 for s in compact.SITES}
     print(f"[e2e] launches per site, legacy + repeats: {json.dumps(launches)}",
@@ -1204,6 +1444,8 @@ def main() -> int:
                else {}),
             "shapes": r.get("shapes", [r])}
 
+    dist_rows = [x for r in dist_res["e2e"].values()
+                 for x in r["compact_shapes"]]
     summary = {"kernels": [{
         "name": "compact_flagged", "route": "cuda",
         "source": "genome_tpu_torch/kernels/csrc/compact.cu",
@@ -1214,16 +1456,23 @@ def main() -> int:
         "host_us_per_call": {"compact_ids": ids["host_us"]},
         "device_split": {r["site"]: r["split"] for r in rows
                          if "split" in r},
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + dist_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "matched_plain": True,
-        "sites": launches, "shapes": rows},
+        "sites": launches, "shapes": rows,
+        # the dist path's timed runs (legacy, repeats), counted apart
+        "dist_sites": {s: sum(r["launches"].get(s, 0)
+                              for r in dist_res["e2e"].values())
+                       for s in compact.SITES},
+        # held against the plain version on the dist path's own inputs
+        "dist_shapes": {w: r["compact_shapes"]
+                        for w, r in dist_res["e2e"].items()}},
         bitonic_entry("sort_blocks", 86), bitonic_entry("merge_blocks", 143),
         hp_entry("digit_histogram", "hist", "pallas_hist.py:74"),
         hp_entry("partition_by_bucket", "partition", "partition.py:193")],
         "sort_pairs_merge": brows["sort_pairs_merge"],
-        "upload": upload, "native_ingest": native,
+        "upload": upload, "native_ingest": native, "dist": dist_res,
         "bitonic_split": brows["split"],
         "count_stream_skew": hp["skew"]}
     print(smi)

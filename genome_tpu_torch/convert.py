@@ -47,3 +47,20 @@ def graph_from_jax(succ, okv_hi, okv_lo, device="cuda"):
     dev = resolve_device(device)
     return (torch.from_numpy(np.array(succ, dtype=np.int32)).to(dev),
             keys_from_pair(np.asarray(okv_hi), np.asarray(okv_lo), dev))
+
+
+def shard_rows(x, num_shards: int, device="cuda") -> list[torch.Tensor]:
+    """A JAX global sharded array ([S * n, ...], shard r in rows r*n ..
+    (r+1)*n - 1) -> one port tensor per rank, dtypes kept. A succ array
+    keeps the JAX global oriented ids, which are the port's too."""
+    dev = resolve_device(device)
+    x = np.asarray(x)
+    return [torch.from_numpy(np.array(p)).to(dev)
+            for p in np.split(x, num_shards)]
+
+
+def shard_keys_from_pair(hi, lo, num_shards: int,
+                         device="cuda") -> list[torch.Tensor]:
+    """JAX global sharded (hi, lo) key arrays [S * n] -> one int64 key
+    tensor per rank."""
+    return shard_rows(keys_from_pair_np(hi, lo), num_shards, device)

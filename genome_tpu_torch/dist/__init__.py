@@ -1,2 +1,23 @@
-"""Hash-sharded multi-device path (port of genome_tpu/dist/). Only the
-owner hash is ported so far (partition.fmix32); see ROADMAP.md."""
+"""Hash-sharded path (port of genome_tpu/dist/).
+
+One process per shard: the JAX package's mesh axis becomes a
+torch.distributed process group (NCCL on the card, one rank a card; gloo
+on the CPU), and the body of each JAX shard_map becomes a plain per-rank
+function that every rank of the group calls (SPMD). Each tiled
+`lax.all_to_all` on an [S, w] buffer is `all_to_all_single` on the same
+[S, w] tensor: row j goes to rank j, row i of the result came from rank
+i. Host decisions that JAX took from a gathered array (the overflow
+retries, shrink_tables' size) are agreed with an all_reduce MAX, so
+every rank takes the same branch.
+
+Ported: partition (owner hash), mesh (group set-up, collectives, the
+local launcher run_local), ledger, count, build, and assemble_sharded
+with the replicated simplify. The sharded simplify and emission are the
+next slices (ROADMAP.md).
+"""
+
+from genome_tpu_torch.dist.assemble import assemble_sharded, shard_reads
+from genome_tpu_torch.dist.mesh import run_local
+from genome_tpu_torch.dist.partition import owner_of_np
+
+__all__ = ["assemble_sharded", "owner_of_np", "run_local", "shard_reads"]

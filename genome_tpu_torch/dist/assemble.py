@@ -1,0 +1,134 @@
+"""Partitioned assembly (port of genome_tpu/dist/assemble.py).
+
+reads --split--> per-rank extraction
+      --all_to_all #1--> sharded count at the k-mer owners
+      --all_to_all #2/#3--> sharded graph build (boundary probes, replies)
+      --all_gather--> the replicated simplify, final chain state and
+          emission of the single-device path on every rank.
+
+SPMD: every rank of the group calls assemble_sharded with the same reads
+and gets the same contigs. Every pin is k-mer-value-based, so the contigs
+equal the single-device pipeline's for every shard count.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from genome_tpu_torch.assemble.metrics import Metrics
+from genome_tpu_torch.assemble.pipeline import (_pow2_at_least,
+                                                extract_stream,
+                                                simplify_with_metrics)
+from genome_tpu_torch.dist.build import sharded_build
+from genome_tpu_torch.dist.count import sharded_count, shrink_tables
+from genome_tpu_torch.dist.ledger import ExchangeLedger
+from genome_tpu_torch.dist.mesh import all_gather_rows, all_max, check_device
+from genome_tpu_torch.graph.contigs import emit_contigs_device
+from genome_tpu_torch.graph.simplify import final_chain_state
+from genome_tpu_torch.kernels.keys import SENTINEL
+from genome_tpu_torch.params import AssemblyParams
+from genome_tpu_torch.utils.device import resolve_device
+
+
+def shard_reads(reads, num_shards: int) -> list:
+    """Contiguous split of a read list or of a code matrix's rows into
+    num_shards parts (the contigs do not depend on the split)."""
+    per = (len(reads) + num_shards - 1) // num_shards
+    return [reads[i * per : (i + 1) * per] for i in range(num_shards)]
+
+
+def assemble_sharded(reads, params: AssemblyParams | None = None,
+                     num_shards: int | None = None, group=None,
+                     metrics: Metrics | None = None,
+                     local_capacity: int | None = None,
+                     sharded_simplify: bool = False,
+                     device="cuda") -> list[str]:
+    """Partitioned assembly over the process group; every rank passes the
+    same reads and returns the same sorted contigs, equal to the
+    single-device pipeline's.
+
+    The count and the build run sharded; the graph is then gathered on
+    every rank for the replicated simplify (JAX assemble_sharded's
+    replicated branch). `device` is the rank's device and must match the
+    group's backend (a CUDA device with NCCL, the CPU with gloo)."""
+    if sharded_simplify:
+        raise NotImplementedError(
+            "sharded_simplify=True needs the port of dist/simplify.py, the "
+            "next slice; pass sharded_simplify=False for the replicated "
+            "simplify")
+    params = params or AssemblyParams()
+    metrics = metrics or Metrics(quiet=True)
+    dev = resolve_device(device)
+    check_device(dev, group)
+    S, rank = dist.get_world_size(group), dist.get_rank(group)
+    if num_shards is not None and num_shards != S:
+        raise ValueError(f"num_shards={num_shards} but the group has {S} "
+                         "ranks")
+    ledger = ExchangeLedger()
+
+    with metrics.phase("dist_extract") as info:
+        stream = extract_stream(shard_reads(reads, S)[rank], params.k, dev)
+        m_local = max(all_max(stream.numel(), group), 8)
+        stream = torch.cat([stream, stream.new_full(
+            (m_local - stream.numel(),), SENTINEL)])
+        info["windows"] = S * m_local
+
+    # sharded count (all_to_all #1), capacity retry on overflow
+    bucket_cap = max(64, int(1.3 * m_local / S) + 64)
+    local_cap = local_capacity or _pow2_at_least(max(64, m_local))
+    with metrics.phase("dist_count") as info:
+        while True:
+            res = sharded_count(stream, params.min_coverage, bucket_cap,
+                                local_cap, group, ledger)
+            ledger.invoke("dist_count")
+            if not res["overflow"]:
+                break
+            bucket_cap *= 2
+            local_cap *= 2
+            metrics.log("dist_capacity_overflow", bucket_cap=bucket_cap,
+                        local_cap=local_cap)
+        del stream
+        n_all = all_gather_rows(res["n_unique"].reshape(1), group)
+        n_unique = int(n_all[rank])
+        info["n_unique_total"] = int(n_all.sum())
+        table, counts, local_cap = shrink_tables(
+            local_cap, res["table"], res["counts"], n_unique, group)
+        del res
+        info["local_cap"] = local_cap
+
+    # sharded build (all_to_all #2/#3: boundary probes and replies)
+    query_cap = max(64, int(1.3 * 8 * local_cap / S) + 64)
+    with metrics.phase("dist_build") as info:
+        while True:
+            succ, okv, ovf = sharded_build(table, n_unique, params.k,
+                                           local_cap, query_cap, group,
+                                           ledger)
+            ledger.invoke("dist_build")
+            if not ovf:
+                break
+            query_cap *= 2
+            metrics.log("dist_query_overflow", query_cap=query_cap)
+        info["query_cap"] = query_cap
+
+    # replicated simplify: every rank holds the gathered graph. Rows past
+    # each rank's n_unique are invalid, so the valid mask has a hole at
+    # the tail of every shard.
+    with metrics.phase("dist_simplify") as info:
+        succ = all_gather_rows(succ, group)
+        okv = all_gather_rows(okv, group)
+        counts = all_gather_rows(counts, group)
+        valid = (torch.arange(local_cap, device=dev)[None, :]
+                 < n_all[:, None]).reshape(-1)
+        alive = torch.ones(S * local_cap, dtype=torch.bool, device=dev)
+        alive, links = simplify_with_metrics(succ, okv, counts, alive, valid,
+                                             params, metrics, with_links=True)
+        fs = final_chain_state(succ, okv, counts, alive, valid, links=links)
+        info["alive"] = int((alive & valid).sum())
+
+    with metrics.phase("dist_contigs") as info:
+        contigs = emit_contigs_device(fs, okv, params.k,
+                                      params.min_contig_len)
+        info["n_contigs"] = len(contigs)
+    metrics.log("exchange_ledger", **ledger.summary())
+    return contigs

@@ -1,29 +1,45 @@
-"""murmur3 fmix32, the owner hash of the k-mer key space (port of
-genome_tpu/dist/partition.py::_fmix32_jnp and its constants).
+"""Hash partition of the canonical k-mer key space (port of
+genome_tpu/dist/partition.py; SEMANTICS §6b).
 
-Values are uint32 held in int64 tensors (this torch build's CPU backend
-has no uint32 arithmetic). Every product is taken modulo 2^32 in 16-bit
-halves, so nothing overflows int64.
+owner(kmer) = murmur3 fmix32 of the key's mixed uint32 halves
+(kernels/keys.py::hash32), masked to the shard count, which must be a
+power of two. The choice is invisible in the output (contigs do not
+depend on the shard count) but every rank must compute it alike.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-_C1 = 0x85EBCA6B
-_C2 = 0xC2B2AE35
-_M32 = 0xFFFFFFFF
+from genome_tpu_torch.kernels.keys import _C1, _C2, hash32
 
 
-def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for uint32 x (in int64) and a uint32 constant c."""
-    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+def _check_shards(num_shards: int) -> None:
+    if num_shards < 1 or num_shards & (num_shards - 1):
+        raise ValueError(f"num_shards must be a power of 2, got {num_shards}")
 
 
-def fmix32(x: torch.Tensor) -> torch.Tensor:
-    """murmur3's 32-bit finaliser, elementwise over uint32 values."""
-    x = x ^ (x >> 16)
-    x = mul32(x, _C1)
-    x = x ^ (x >> 13)
-    x = mul32(x, _C2)
-    return x ^ (x >> 16)
+def owner_of(keys: torch.Tensor, num_shards: int) -> torch.Tensor:
+    """int32 shard owning each int64 canonical k-mer (JAX owner_of)."""
+    _check_shards(num_shards)
+    return (hash32(keys) & (num_shards - 1)).to(torch.int32)
+
+
+def _fmix32_np(x):
+    x = x ^ (x >> np.uint32(16))
+    x = (x * np.uint32(_C1)).astype(np.uint32)
+    x = x ^ (x >> np.uint32(13))
+    x = (x * np.uint32(_C2)).astype(np.uint32)
+    x = x ^ (x >> np.uint32(16))
+    return x
+
+
+def owner_of_np(kmers_u64, num_shards: int) -> np.ndarray:
+    """NumPy twin of owner_of, for tests and host planning."""
+    _check_shards(num_shards)
+    k = np.asarray(kmers_u64, dtype=np.uint64)
+    hi = (k >> np.uint64(32)).astype(np.uint32)
+    lo = (k & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    mixed = lo ^ (hi * np.uint32(_C2)).astype(np.uint32)
+    return (_fmix32_np(mixed) & np.uint32(num_shards - 1)).astype(np.int32)

@@ -16,9 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from genome_tpu_torch.dist.partition import _C2, _M32, fmix32, mul32
 from genome_tpu_torch.kernels.count import _empty, count_weighted
-from genome_tpu_torch.kernels.keys import SENTINEL
+from genome_tpu_torch.kernels.keys import SENTINEL, hash32
 
 
 def count_kmers_hashtable(keys, min_coverage, capacity: int,
@@ -35,8 +34,7 @@ def count_kmers_hashtable(keys, min_coverage, capacity: int,
         return _empty(capacity, dev)
 
     idx = torch.arange(m, device=dev)
-    # the JAX hash of the (hi, lo) pair: fmix32(lo ^ (hi * C2)) in uint32
-    h0 = fmix32((keys & _M32) ^ mul32(keys >> 32, _C2))
+    h0 = hash32(keys)
     done = keys == SENTINEL  # invalid windows never insert
     # slot `capacity` of each buffer is the drop slot
     t_keys = torch.full((capacity + 1,), SENTINEL, dtype=torch.int64,

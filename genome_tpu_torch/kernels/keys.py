@@ -21,6 +21,9 @@ _M4 = 0x0F0F0F0F0F0F0F0F
 _M8 = 0x00FF00FF00FF00FF
 _M16 = 0x0000FFFF0000FFFF
 _M32 = 0x00000000FFFFFFFF
+# murmur3 fmix32 constants (the JAX package's dist/partition.py)
+_C1 = 0x85EBCA6B
+_C2 = 0xC2B2AE35
 
 
 def kmer_mask(k: int) -> int:
@@ -44,6 +47,29 @@ def revcomp(x: torch.Tensor, k: int) -> torch.Tensor:
 def canonical(x: torch.Tensor, k: int) -> torch.Tensor:
     """min(kmer, revcomp(kmer)) elementwise (SEMANTICS §2)."""
     return torch.minimum(x, revcomp(x, k))
+
+
+def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for uint32 x (in int64) and a uint32 constant c,
+    in 16-bit halves so that nothing overflows int64."""
+    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finaliser, elementwise over uint32 values held in
+    int64 (this torch build's CPU backend has no uint32 arithmetic)."""
+    x = x ^ (x >> 16)
+    x = mul32(x, _C1)
+    x = x ^ (x >> 13)
+    x = mul32(x, _C2)
+    return x ^ (x >> 16)
+
+
+def hash32(x: torch.Tensor) -> torch.Tensor:
+    """fmix32(lo ^ (hi * C2)) of each key's uint32 halves: the JAX
+    package's hash of the (hi, lo) pair, behind the shard owner and the
+    hash-table counter. Keys are non-negative, so hi is."""
+    return fmix32((x & _M32) ^ mul32(x >> 32, _C2))
 
 
 def keys_from_pair_np(hi, lo) -> np.ndarray:

@@ -17,7 +17,7 @@ from genome_tpu.kernels.sort_bucket import (
     bucket_partition_sort as jax_bucket_sort)
 from genome_tpu.kernels.sort_bucket import count_kmers_bucket as jax_bucket
 from genome_tpu_torch import convert
-from genome_tpu_torch.dist.partition import fmix32
+from genome_tpu_torch.kernels.keys import fmix32
 from genome_tpu_torch.io import random_genome, simulate_reads
 from genome_tpu_torch.kernels.hash_table import count_kmers_hashtable
 from genome_tpu_torch.kernels.sort_bucket import (bucket_partition_sort,
