@@ -67,12 +67,20 @@ Phases (any failure exits non-zero and prints no result line):
      count_kmers_device's table (compact_flagged launched at count_heads
      and count_filter), the count exchange's all_to_all_single timed with
      CUDA events (at P = 1 a copy on the card), and assemble_sharded on
-     legacy and repeats: a warm-up that keeps compact_flagged's inputs at
-     each of its sites, each held against the plain version and timed at
-     the path's own shapes (the count at the routed bucket length and
-     capacity 2^27, the simplify on the gathered graph), then a timed run
-     (golden SHAs, phase walls, peak device bytes, the exchange ledger,
-     and a launch at every compaction site of the path).
+     legacy and repeats with the replicated simplify
+     (sharded_simplify=False): a warm-up that keeps compact_flagged's
+     inputs at each of its sites, each held against the plain version and
+     timed at the path's own shapes (the count at the routed bucket length
+     and capacity 2^27, the simplify on the gathered graph), then a timed
+     run (golden SHAs, phase walls, peak device bytes, the exchange
+     ledger, and a launch at every compaction site of the path), one
+     profiled run; then the same with the sharded simplify passes (the
+     default, `[dist sharded …]`): compact_flagged held and timed at its
+     dist_kills, dist_bubble_cands, tails and contig_starts inputs, the
+     timed run's dist_simplify_sharded wall beside the dist_simplify
+     (gather, final state) one, the passes run and the slack rung from
+     the ledger, no fallback to the replicated passes, and one profiled
+     run: the device time and idle share of the sharded passes alone.
 Every profiled block runs under _profiled, which keeps it away from the
 ends of its profiler session and fails when the trace lacks a device
 record of a launch, copy or memset.
@@ -238,13 +246,15 @@ def _profiled(label):
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     out.prof = prof
+    out.events = events
     out.rows = _block_rows(label, events)
 
 
-def _block_rows(label, events) -> list[dict]:
-    """The device records of the host calls inside the trace's "_profiled
-    block" annotation, in time order; raises if one has none."""
-    block = next(e for e in events if e.get("name") == "_profiled block"
+def _block_rows(label, events, annotation="_profiled block") -> list[dict]:
+    """The device records of the host calls inside the trace's
+    `annotation` (a record_function), in time order; raises if one has
+    none."""
+    block = next(e for e in events if e.get("name") == annotation
                  and e.get("cat") == "user_annotation")
     device = {e["args"]["correlation"]: e for e in events
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
@@ -471,8 +481,8 @@ def phase_native_ingest(w, params, golden) -> dict:
         compact.reset_launches()
         res["timed"] = run("timed")
         launches = dict(compact.LAUNCHES)
-        missing = [s for s in compact.SITES
-                   if s != "tails" and not launches.get(s)]
+        missing = [s for s in compact.SITES if s != "tails"
+                   and not s.startswith("dist_") and not launches.get(s)]
         print("[native ingest] launches="
               f"{json.dumps(launches, sort_keys=True)}", flush=True)
         if missing:
@@ -648,6 +658,7 @@ def phase_e2e(name, w, params, golden, counter="sort", ckpt=None) -> dict:
     # `count_merge` site instead of the two sort-path count sites; a
     # resumed run does not count at all
     need = [s for s in compact.SITES if s != "tails"
+            and not s.startswith("dist_")
             and not (s.startswith("count") and (counter != "sort" or resumed))]
     if counter != "sort" and not resumed:
         need.append("count_merge")
@@ -1159,8 +1170,13 @@ def phase_sorter(w, params, golden) -> dict:
                 default_count_wall_s=wall_default, sha=e2e["sha"])
 
 
+# compact_flagged sites of the dist path: the replicated simplify's, and
+# the sharded simplify's (whose four own sites are timed)
 DIST_SITES = ("count_heads", "count_filter", "tips", "bubbles", "kills",
-              "contig_starts")  # compact_flagged sites of the dist path
+              "contig_starts")
+DIST_SHARDED_TIMED = ("dist_kills", "dist_bubble_cands", "tails",
+                      "contig_starts")
+DIST_SHARDED_SITES = ("count_heads", "count_filter") + DIST_SHARDED_TIMED
 
 
 @contextlib.contextmanager
@@ -1190,37 +1206,48 @@ def _capture_compact():
             m.compact_flagged = orig
 
 
-def _dist_e2e(name, w, params, golden) -> dict:
-    """assemble_sharded on a one-rank NCCL group: a warm-up that keeps
-    compact_flagged's inputs at each site, each held against the plain
-    version and timed (the dist path's own shapes: the count at the routed
-    bucket length and capacity 2^27, the simplify on the gathered graph),
-    then a timed run with the launch counters set to 0 just before it; the
-    golden SHA, per-phase walls, peak device bytes, the exchange ledger."""
+def _dist_e2e(name, w, params, golden, sharded: bool) -> dict:
+    """assemble_sharded on a one-rank NCCL group, with the sharded or the
+    replicated simplify: a warm-up that keeps compact_flagged's inputs at
+    each site, each held against the plain version and timed (the dist
+    path's own shapes: the count at the routed bucket length and capacity
+    2^27, the replicated simplify on the gathered graph; for the sharded
+    one its kill and candidate compactions on a rank's 2^23 canonical and
+    2^24 oriented ids, and the final state and emission on the gathered
+    graph), then a timed run with the launch counters set to 0 just before
+    it; the golden SHA, per-phase walls, peak device bytes, the exchange
+    ledger; for the sharded simplify the passes run and the slack rung
+    reached (from the ledger), and no fallback to the replicated passes."""
     import torch
     from genome_tpu_torch.assemble.metrics import Metrics
     from genome_tpu_torch.dist import assemble_sharded
     from genome_tpu_torch.io.benchdata import contigs_sha, workload_key
     from genome_tpu_torch.kernels import compact
 
+    label = f"dist sharded {name}" if sharded else f"dist {name}"
+    sites = DIST_SHARDED_SITES if sharded else DIST_SITES
     want = golden.get(workload_key(w, params.params_hash()))
     if want is None:
-        raise AssertionError(f"dist {name}: no golden SHA cached")
-    with _capture_compact() as inputs:
-        assemble_sharded(w["err"], params, device="cuda")  # warm-up
-    missing = [s for s in DIST_SITES if s not in inputs]
+        raise AssertionError(f"{label}: no golden SHA cached")
+    with _capture_compact() as inputs:  # warm-up
+        assemble_sharded(w["err"], params, sharded_simplify=sharded,
+                         device="cuda")
+    missing = [s for s in sites if s not in inputs]
     if missing:
-        raise AssertionError(f"dist {name}: no compact_flagged call at "
+        raise AssertionError(f"{label}: no compact_flagged call at "
                              f"{missing}")
-    shapes = [_shape_row(f"dist {name} kernels", site, *inputs.pop(site))
-              for site in [s for s in compact.SITES if s in inputs]]
+    timed = DIST_SHARDED_TIMED if sharded else [
+        s for s in compact.SITES if s in inputs]
+    shapes = [_shape_row(f"{label} kernels", site, *inputs.pop(site))
+              for site in timed]
     del inputs
     m = Metrics(quiet=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     compact.reset_launches()
     t0 = time.perf_counter()
-    contigs = assemble_sharded(w["err"], params, metrics=m, device="cuda")
+    contigs = assemble_sharded(w["err"], params, metrics=m,
+                               sharded_simplify=sharded, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(compact.LAUNCHES)
@@ -1229,25 +1256,82 @@ def _dist_e2e(name, w, params, golden) -> dict:
     ends = {e["phase"]: e for e in m.events if e["event"] == "phase_end"}
     ledger = next(e for e in m.events if e["event"] == "exchange_ledger")
     ledger = {k: v for k, v in ledger.items() if k not in ("ts", "event")}
-    print(f"[dist {name}] P=1 NCCL wall={wall:.4f} s "
+    print(f"[{label}] P=1 NCCL wall={wall:.4f} s "
           + " ".join(f"{p}={e['wall_s']:.4f}s" for p, e in ends.items())
           + f" peak_mem_bytes={peak} contigs={len(contigs)}", flush=True)
     skip = ("ts", "event", "phase", "wall_s")
     info = {p: {k: v for k, v in e.items() if k not in skip}
             for p, e in ends.items()}
-    print(f"[dist {name}] phase info {json.dumps(info)}", flush=True)
-    print(f"[dist {name}] ledger={json.dumps(ledger)}", flush=True)
-    print(f"[dist {name}] launches={json.dumps(launches, sort_keys=True)}",
+    print(f"[{label}] phase info {json.dumps(info)}", flush=True)
+    print(f"[{label}] ledger={json.dumps(ledger)}", flush=True)
+    print(f"[{label}] launches={json.dumps(launches, sort_keys=True)}",
           flush=True)
-    print(f"[dist {name}] sha={sha} golden={want}", flush=True)
+    print(f"[{label}] sha={sha} golden={want}", flush=True)
     if sha != want:
-        raise AssertionError(f"dist {name}: contig SHA {sha} != golden {want}")
-    missing = [s for s in DIST_SITES if launches.get(s, 0) == 0]
+        raise AssertionError(f"{label}: contig SHA {sha} != golden {want}")
+    missing = [s for s in sites if launches.get(s, 0) == 0]
     if missing:
-        raise AssertionError(f"dist {name}: no kernel launch at {missing}")
-    return dict(wall_s=wall, peak_mem_bytes=peak, launches=launches, sha=sha,
-                phases={p: e["wall_s"] for p, e in ends.items()},
-                ledger=ledger, compact_shapes=shapes)
+        raise AssertionError(f"{label}: no kernel launch at {missing}")
+    res = dict(wall_s=wall, peak_mem_bytes=peak, launches=launches, sha=sha,
+               phases={p: e["wall_s"] for p, e in ends.items()},
+               ledger=ledger, compact_shapes=shapes)
+    if sharded:
+        fell_back = any(e["event"] == "dist_simplify_overflow_fallback"
+                        for e in m.events)
+        if info["dist_simplify_sharded"]["overflow"] or fell_back:
+            raise AssertionError(f"{label}: the sharded passes overflowed "
+                                 "every rung and fell back")
+        passes = {p: ledger[p]["invocations"]
+                  for p in ("dist_degrees", "dist_tips", "dist_bubbles")}
+        rung = 1 + ledger["dist_degrees"].get("retry_epochs", 0)
+        print(f"[{label}] dist_simplify_sharded="
+              f"{ends['dist_simplify_sharded']['wall_s']:.4f} s (the passes) "
+              f"beside dist_simplify={ends['dist_simplify']['wall_s']:.4f} s "
+              f"(gather, final state); passes at the last rung "
+              f"{json.dumps(passes)}; slack rung {rung} (slack "
+              f"{1.35 * 2 ** (rung - 1):.2f})", flush=True)
+        res.update(passes=passes, slack_rung=rung)
+    return res
+
+
+def phase_profile_sharded(label, fn, phase_wall_s: float) -> dict:
+    """One more run of `fn` (a sharded assemble_sharded) under
+    torch.profiler, its simplify_sharded call inside a record_function:
+    the device time by kernel of the device records of that call's host
+    calls, and the idle share against `phase_wall_s`, the same phase's
+    unprofiled wall."""
+    import torch
+    from torch.profiler import record_function
+    from genome_tpu_torch.dist import assemble as dist_assemble
+    orig = dist_assemble.simplify_sharded
+
+    def annotated(*args, **kwargs):
+        torch.cuda.synchronize()
+        with record_function("dist_simplify_sharded"):
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+        return out
+    dist_assemble.simplify_sharded = annotated
+    try:
+        with _profiled(label) as p:
+            fn()
+    finally:
+        dist_assemble.simplify_sharded = orig
+    span = next(e for e in p.events if e.get("name") == "dist_simplify_sharded"
+                and e.get("cat") == "user_annotation")
+    ev = _by_name(_block_rows(f"{label} passes", p.events,
+                              "dist_simplify_sharded"))
+    busy_ms = sum(ms for _, ms, _ in ev)
+    idle = 1 - busy_ms / (phase_wall_s * 1e3)
+    print(f"[{label}] dist_simplify_sharded: device busy={busy_ms:.1f} ms; "
+          f"unprofiled phase wall={phase_wall_s * 1e3:.1f} ms idle_share="
+          f"{idle:.3f} (profiled span {span['dur'] / 1e3:.1f} ms)",
+          flush=True)
+    for name, ms, n in ev[:12]:
+        print(f"[{label}]   {ms:8.2f} ms x{n:<5d} {name[:90]}", flush=True)
+    return dict(device_busy_ms=busy_ms, idle_share=idle,
+                top=[dict(name=n[:90], ms=ms, records=c)
+                     for n, ms, c in ev[:12]])
 
 
 def phase_dist(legacy, repeats, params, golden, smi: str) -> dict:
@@ -1255,7 +1339,8 @@ def phase_dist(legacy, repeats, params, golden, smi: str) -> dict:
     sharded count of the legacy stream equal to count_kmers_device's table
     (compact_flagged launched at count_heads and count_filter), the count
     exchange's all_to_all_single timed (at P = 1 a local copy), then
-    assemble_sharded on legacy and repeats with their golden SHAs."""
+    assemble_sharded on legacy and repeats with their golden SHAs, with
+    the replicated and with the sharded simplify."""
     import torch
     import torch.distributed as dist
     from genome_tpu_torch.assemble.pipeline import extract_stream
@@ -1304,12 +1389,28 @@ def phase_dist(legacy, repeats, params, golden, smi: str) -> dict:
                   f"(CUDA events, {REPEATS} calls; at P = 1 NCCL copies the "
                   f"buffer on the card, nothing crosses a link) | {smi}",
                   flush=True)
-            e2e = {"legacy": _dist_e2e("legacy", legacy, params, golden),
-                   "repeats": _dist_e2e("repeats", repeats, params, golden)}
+            e2e = {"legacy": _dist_e2e("legacy", legacy, params, golden,
+                                       sharded=False),
+                   "repeats": _dist_e2e("repeats", repeats, params, golden,
+                                        sharded=False)}
             e2e["legacy"]["profile"] = phase_profile(
                 "dist profile legacy", lambda: assemble_sharded(
-                    legacy["err"], params, device="cuda"),
+                    legacy["err"], params, sharded_simplify=False,
+                    device="cuda"),
                 e2e["legacy"]["wall_s"])
+            for name, w in (("legacy", legacy), ("repeats", repeats)):
+                sh = e2e[f"sharded {name}"] = _dist_e2e(
+                    name, w, params, golden, sharded=True)
+                print(f"[dist sharded {name}] dist_simplify_sharded "
+                      f"{sh['phases']['dist_simplify_sharded']:.4f} s beside "
+                      f"the replicated branch's dist_simplify "
+                      f"{e2e[name]['phases']['dist_simplify']:.4f} s (this "
+                      f"call); e2e {sh['wall_s']:.4f} s beside "
+                      f"{e2e[name]['wall_s']:.4f} s | {smi}", flush=True)
+            e2e["sharded legacy"]["profile"] = phase_profile_sharded(
+                "dist sharded profile legacy", lambda: assemble_sharded(
+                    legacy["err"], params, device="cuda"),
+                e2e["sharded legacy"]["phases"]["dist_simplify_sharded"])
         finally:
             dist.destroy_process_group()
     return dict(count_launches=launches, count_wall_s=count_s,

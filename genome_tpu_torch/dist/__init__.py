@@ -11,13 +11,17 @@ retries, shrink_tables' size) are agreed with an all_reduce MAX, so
 every rank takes the same branch.
 
 Ported: partition (owner hash), mesh (group set-up, collectives, the
-local launcher run_local), ledger, count, build, and assemble_sharded
-with the replicated simplify. The sharded simplify and emission are the
+local launcher run_local), ledger, count, build, the sharded simplify
+passes and their host loop, and assemble_sharded with the sharded or
+the replicated simplify. The sharded final state and emission are the
 next slices (ROADMAP.md).
 """
 
 from genome_tpu_torch.dist.assemble import assemble_sharded, shard_reads
 from genome_tpu_torch.dist.mesh import run_local
 from genome_tpu_torch.dist.partition import owner_of_np
+from genome_tpu_torch.dist.simplify import (make_sharded_simplify,
+                                            simplify_sharded)
 
-__all__ = ["assemble_sharded", "owner_of_np", "run_local", "shard_reads"]
+__all__ = ["assemble_sharded", "make_sharded_simplify", "owner_of_np",
+           "run_local", "shard_reads", "simplify_sharded"]

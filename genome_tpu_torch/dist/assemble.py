@@ -3,8 +3,10 @@
 reads --split--> per-rank extraction
       --all_to_all #1--> sharded count at the k-mer owners
       --all_to_all #2/#3--> sharded graph build (boundary probes, replies)
-      --all_gather--> the replicated simplify, final chain state and
-          emission of the single-device path on every rank.
+      --> sharded simplify (dist/simplify.py: remote-gather pointer
+          doubling; the replicated passes when its slack ladder is used up)
+      --all_gather--> the final chain state and emission of the
+          single-device path on every rank.
 
 SPMD: every rank of the group calls assemble_sharded with the same reads
 and gets the same contigs. Every pin is k-mer-value-based, so the contigs
@@ -24,6 +26,7 @@ from genome_tpu_torch.dist.build import sharded_build
 from genome_tpu_torch.dist.count import sharded_count, shrink_tables
 from genome_tpu_torch.dist.ledger import ExchangeLedger
 from genome_tpu_torch.dist.mesh import all_gather_rows, all_max, check_device
+from genome_tpu_torch.dist.simplify import simplify_sharded
 from genome_tpu_torch.graph.contigs import emit_contigs_device
 from genome_tpu_torch.graph.simplify import final_chain_state
 from genome_tpu_torch.kernels.keys import SENTINEL
@@ -42,21 +45,21 @@ def assemble_sharded(reads, params: AssemblyParams | None = None,
                      num_shards: int | None = None, group=None,
                      metrics: Metrics | None = None,
                      local_capacity: int | None = None,
-                     sharded_simplify: bool = False,
+                     sharded_simplify: bool = True,
                      device="cuda") -> list[str]:
     """Partitioned assembly over the process group; every rank passes the
     same reads and returns the same sorted contigs, equal to the
     single-device pipeline's.
 
-    The count and the build run sharded; the graph is then gathered on
-    every rank for the replicated simplify (JAX assemble_sharded's
-    replicated branch). `device` is the rank's device and must match the
-    group's backend (a CUDA device with NCCL, the CPU with gloo)."""
-    if sharded_simplify:
-        raise NotImplementedError(
-            "sharded_simplify=True needs the port of dist/simplify.py, the "
-            "next slice; pass sharded_simplify=False for the replicated "
-            "simplify")
+    The count and the build run sharded. With sharded_simplify (the
+    default, as in JAX) the tip and bubble passes run sharded too, and
+    the graph and the alive mask are then gathered on every rank for the
+    final chain state and emission (JAX's branch after a sharded-final
+    overflow; the sharded final state is the next slice). Without it, or
+    when the sharded passes' slack ladder is used up, every rank runs
+    the replicated passes on the gathered graph. `device` is the rank's
+    device and must match the group's backend (a CUDA device with NCCL,
+    the CPU with gloo)."""
     params = params or AssemblyParams()
     metrics = metrics or Metrics(quiet=True)
     dev = resolve_device(device)
@@ -111,18 +114,36 @@ def assemble_sharded(reads, params: AssemblyParams | None = None,
             metrics.log("dist_query_overflow", query_cap=query_cap)
         info["query_cap"] = query_cap
 
-    # replicated simplify: every rank holds the gathered graph. Rows past
-    # each rank's n_unique are invalid, so the valid mask has a hole at
-    # the tail of every shard.
+    # sharded simplify: the passes retry up the slack ladder on a route
+    # overflow; only a used-up ladder falls back to the replicated passes
+    alive_sh = None
+    if sharded_simplify:
+        with metrics.phase("dist_simplify_sharded") as info:
+            alive0 = torch.ones(local_cap, dtype=torch.bool, device=dev)
+            alive_sh, ovf = simplify_sharded(succ, okv, counts, alive0,
+                                             n_unique, params, group, ledger)
+            info["overflow"] = ovf
+            if ovf:
+                alive_sh = None
+                metrics.log("dist_simplify_overflow_fallback")
+
+    # every rank holds the gathered graph. Rows past each rank's n_unique
+    # are invalid, so the valid mask has a hole at the tail of every
+    # shard; `alive` counts alive & valid, not the holes (JAX counts
+    # every slot)
     with metrics.phase("dist_simplify") as info:
         succ = all_gather_rows(succ, group)
         okv = all_gather_rows(okv, group)
         counts = all_gather_rows(counts, group)
         valid = (torch.arange(local_cap, device=dev)[None, :]
                  < n_all[:, None]).reshape(-1)
-        alive = torch.ones(S * local_cap, dtype=torch.bool, device=dev)
-        alive, links = simplify_with_metrics(succ, okv, counts, alive, valid,
-                                             params, metrics, with_links=True)
+        if alive_sh is None:
+            alive = torch.ones(S * local_cap, dtype=torch.bool, device=dev)
+            alive, links = simplify_with_metrics(
+                succ, okv, counts, alive, valid, params, metrics,
+                with_links=True)
+        else:
+            alive, links = all_gather_rows(alive_sh, group), None
         fs = final_chain_state(succ, okv, counts, alive, valid, links=links)
         info["alive"] = int((alive & valid).sum())
 

@@ -43,7 +43,7 @@ def sharded_build(table: torch.Tensor, n_unique, k: int,
     host bool of a query bucket overflow on any rank: retry bigger)."""
     S, me = dist.get_world_size(group), dist.get_rank(group)
     if ledger is not None:
-        ledger.program("dist_build")
+        ledger.program("dist_build", (local_capacity, query_cap))
     cl, dev = local_capacity, table.device
     n = int(n_unique)
     valid_node = torch.arange(cl, device=dev) < n

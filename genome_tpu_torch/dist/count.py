@@ -19,16 +19,22 @@ from genome_tpu_torch.dist.partition import owner_of
 from genome_tpu_torch.kernels.count import count_kmers_device
 from genome_tpu_torch.kernels.keys import SENTINEL
 
+# the empty slot of an int32 route: above every global node id, so it
+# sorts after each of them as JAX's 0xFFFFFFFF does
+EMPTY32 = (1 << 31) - 1
+
 
 def route_buckets(vals: tuple, owner: torch.Tensor, num_shards: int,
                   bucket_cap: int, group=None,
                   ledger: ExchangeLedger | None = None):
-    """Bucket int64 values by owner and exchange them with one all_to_all
+    """Bucket values by owner and exchange them with one all_to_all
     (JAX dist/count.py::route_buckets).
 
-    `vals` are local [M] int64 tensors; `owner` is [M] in [0, num_shards),
-    or >= num_shards to drop the slot. Returns (received: one [num_shards
-    * bucket_cap] tensor per value, SENTINEL in empty slots; send_pos [M]
+    `vals` are local [M] tensors of one dtype: int64 keys (the count, the
+    build) or int32 columns (the sharded simplify, JAX's 32-bit words);
+    `owner` is [M] in [0, num_shards), or >= num_shards to drop the slot.
+    Returns (received: one [num_shards * bucket_cap] tensor per value,
+    empty slots SENTINEL for int64 and EMPTY32 for int32; send_pos [M]
     int32, each element's flat send slot, -1 if dropped; overflow, a 0-dim
     bool tensor set when some bucket holds more than bucket_cap).
 
@@ -53,8 +59,10 @@ def route_buckets(vals: tuple, owner: torch.Tensor, num_shards: int,
     send_pos = torch.empty(m, dtype=torch.int32, device=dev)
     send_pos[sidx] = torch.where(dest < n_slots, dest, -1).to(torch.int32)
     # slot n_slots of each row is the drop slot
-    buf = torch.full((len(vals), n_slots + 1), SENTINEL, dtype=torch.int64,
-                     device=dev)
+    dtype = vals[0].dtype
+    buf = torch.full((len(vals), n_slots + 1),
+                     SENTINEL if dtype == torch.int64 else EMPTY32,
+                     dtype=dtype, device=dev)
     for j, v in enumerate(vals):
         buf[j, dest] = v[sidx]
     stacked = buf[:, :n_slots].reshape(len(vals), S, bucket_cap)
@@ -79,7 +87,7 @@ def sharded_count(keys: torch.Tensor, min_coverage, bucket_cap: int,
     (the same on every rank: retry bigger)."""
     S = dist.get_world_size(group)
     if ledger is not None:
-        ledger.program("dist_count")
+        ledger.program("dist_count", (bucket_cap, local_capacity))
     own = torch.where(keys != SENTINEL, owner_of(keys, S), S)
     (received,), _, ovf_route = route_buckets((keys,), own, S, bucket_cap,
                                               group, ledger)

@@ -4,14 +4,18 @@ genome_tpu/dist/ledger.py; SURVEY §5.5).
 The JAX ledger records each sharded program's exchanges once, while the
 program is traced, and multiplies them by the host's invocation count.
 The port has no trace, so a program records its all_to_alls as it runs:
-`program(name)` opens a fresh cost at the start of each call, the
-exchanges record the bytes they actually send, and the caller counts the
-call with `invoke(name)`. A capacity retry is a new call with bigger
-caps, so the cost of the calls before it is archived as a retry epoch, as
-a JAX retrace archives it.
+`program(name, key)` opens each call, with `key` what fixes the
+program's exchanges (its caps), as a trace's static arguments fix them in
+JAX. The first call at a key records the bytes its exchanges send; a
+later call at the same key (a sharded simplify pass, once a round) counts
+one more invocation of that cost, as a jitted program called again does.
+A call at a new key (a capacity retry, a slack rung) archives the cost
+and invocations before it as a retry epoch, as a JAX retrace archives
+them. The caller counts each call with `invoke(name)`.
 
 `summary()` keeps the JAX keys and numbers: a key costs 8 bytes on the
-wire in both (two uint32 there, one int64 here), a response 4. Of each
+wire in both (two uint32 there, one int64 here), a response 4, and the
+sharded simplify's columns are JAX's 32-bit words. Of each
 all_to_all buffer, (S-1)/S leaves the rank. The host agreements
 (all_max, all_any) stand in for JAX's host reads of a gathered flag and
 are not counted, as JAX does not count those. One ledger belongs to one
@@ -30,7 +34,7 @@ class _ProgramCost:
 
     def as_dict(self, cross: float) -> dict:
         # psum and the round-capped dyn_* stay 0 until a program with a
-        # psum or a capped loop (the sharded simplify) records them
+        # psum or an early-exit loop (the sharded final state) records them
         return {
             "a2a": self.a2a,
             "psum": 0,
@@ -46,16 +50,23 @@ class ExchangeLedger:
         self.programs: dict[str, _ProgramCost] = {}
         self.invocations: dict[str, int] = {}
         self.archived: dict[str, list] = {}
+        self._keys: dict[str, object] = {}
         self._current: str | None = None
         self.num_shards = 0
 
-    def program(self, name: str) -> None:
-        """Open a call of program `name`; a call after counted ones
-        archives their (cost, invocations) as a retry epoch."""
+    def program(self, name: str, key) -> None:
+        """Open a call of program `name` at `key` (its caps). At the key of
+        the program's last call nothing is recorded again; at a new key
+        the (cost, invocations) before it are archived as a retry epoch
+        (if counted) and a fresh cost records this call's exchanges."""
+        if name in self.programs and self._keys[name] == key:
+            self._current = None
+            return
         if name in self.programs and self.invocations.get(name, 0) > 0:
             self.archived.setdefault(name, []).append(
                 (self.programs[name], self.invocations[name]))
             self.invocations[name] = 0
+        self._keys[name] = key
         self._current = name
         self.programs[name] = _ProgramCost()
 

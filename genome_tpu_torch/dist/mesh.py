@@ -101,6 +101,16 @@ def all_any(flag, group=None) -> bool:
     return all_max(int(bool(flag)), group) > 0
 
 
+def all_any_each(flags, group=None) -> list[bool]:
+    """all_any of each of several flags (bools or 0-dim tensors on the
+    rank's device), in one all_reduce."""
+    dev = group_device(group)
+    t = torch.stack([torch.as_tensor(f, device=dev).reshape(())
+                     .to(torch.int64) for f in flags])
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return [v > 0 for v in t.tolist()]
+
+
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's x (equal shapes), concatenated along dim 0 in rank
     order."""

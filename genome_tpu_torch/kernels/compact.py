@@ -42,6 +42,9 @@ SITES = {
     "kills": "graph/simplify.py:517",
     "tails": "graph/simplify.py:984",
     "contig_starts": "graph/contigs.py:104",
+    # the sharded simplify (dist/simplify.py::_compact's two callers)
+    "dist_kills": "dist/simplify.py:428",
+    "dist_bubble_cands": "dist/simplify.py:601",
 }
 
 # wrapper calls that launched the kernel, per call-site label (CUDA path

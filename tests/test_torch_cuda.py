@@ -89,6 +89,29 @@ def test_compact_kernel_matches_plain_on_card(cuda_device, n, p, types, cap,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("site,n,p,types,cap", [
+    # dist_kills: a rank's killed canonicals, compacted to _KILL_MD slots
+    # (no payload: the positions are the ids); capacity 2 is the tests'
+    # forced overflow
+    ("dist_kills", 1 << 10, 0.01, "", 4096),
+    ("dist_kills", 1 << 16, 0.05, "", 4096),
+    ("dist_kills", 1 << 16, 0.001, "", 2),
+    ("dist_kills", 1 << 14, 0.5, "", 4096),
+    # dist_bubble_cands: the candidate heads with p, s, coverage, okv and
+    # the head id
+    ("dist_bubble_cands", 1 << 11, 0.05, "iilli", 4096),
+    ("dist_bubble_cands", 1 << 16, 0.02, "iilli", 4096),
+    ("dist_bubble_cands", 1 << 16, 0.001, "iilli", 2),
+    ("dist_bubble_cands", 1 << 14, 0.5, "iilli", 4096)])
+def test_compact_at_the_sharded_simplify_sites(cuda_device, site, n, p,
+                                               types, cap):
+    flags, arrays = _compact_case(cuda_device, n, p, types, 0, n + cap)
+    got = compact.compact_flagged(flags, arrays, cap, site=site)
+    _assert_compact_equal(flags, arrays, cap, got)
+    assert bool(got[3]) == (int(flags.sum()) > cap)
+
+
+@pytest.mark.cuda
 def test_compact_back_to_back_and_on_a_side_stream(cuda_device):
     """Three calls of different n back to back on one stream, then one on
     a side stream whose input is made there just before the call: every
@@ -121,7 +144,7 @@ def test_pipeline_on_card_equals_cpu(cuda_device):
     got = run_pipeline(reads, params, device=cuda_device)["contigs"]
     assert got == run_pipeline(reads, params, device="cpu")["contigs"]
     assert all(compact.LAUNCHES[s] > 0 for s in compact.SITES
-               if s != "tails")
+               if s != "tails" and not s.startswith("dist_"))
 
 
 def _upload_codes(n_rate, seed, rows=300_001, L=101):

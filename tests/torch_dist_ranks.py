@@ -2,23 +2,118 @@
 genome_tpu_torch.dist.run_local in spawned processes. This module imports
 only the port (no JAX), so a rank starts quickly and never touches JAX."""
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from genome_tpu_torch.assemble.metrics import Metrics
 from genome_tpu_torch.assemble.pipeline import extract_stream
 from genome_tpu_torch.dist import assemble_sharded, shard_reads
+from genome_tpu_torch.dist import simplify as dsimplify
 from genome_tpu_torch.dist.build import sharded_build
 from genome_tpu_torch.dist.count import sharded_count
 from genome_tpu_torch.dist.ledger import ExchangeLedger
 from genome_tpu_torch.kernels.keys import SENTINEL
 
+OPS_WIDTH = 64  # ids a rank in the remote_gather / seg_route checks
+_BUB_MC = dsimplify._bub_mc
+
+
+def tiny_bub_mc_first_rung(cl2, slack):
+    """_bub_mc override: 2 candidate slots on the ladder's first rung."""
+    return 2 if slack < 1.4 else _BUB_MC(cl2, slack)
+
+
+def tiny_bub_mc(cl2, slack):
+    """_bub_mc override: 2 candidate slots on every rung."""
+    return 2
+
+
+def ops_case(seed, S, rank):
+    """The global arrays (the same on every rank) and this rank's requests
+    and records of the remote_gather / seg_route checks: ids with
+    duplicates, invalid slots (some negative) and owner-local ids."""
+    w = OPS_WIDTH
+    g = np.random.default_rng(seed)
+    v32 = g.integers(-2**31, 2**31 - 1, S * w, dtype=np.int64).astype(
+        np.int32)
+    v64 = g.integers(-2**62, 2**62, S * w, dtype=np.int64)
+    r = np.random.default_rng(seed * 1000 + rank)
+    m = 3 * w
+    pool = r.integers(0, S * w, 12)
+    idx = np.where(r.random(m) < 0.5, r.choice(pool, m),
+                   r.integers(0, S * w, m))
+    idx[: w // 4] = rank * w + np.arange(w // 4)  # owner-local, self ids
+    valid = r.random(m) < 0.8
+    idx[~valid & (r.random(m) < 0.5)] = -3
+    d64 = r.integers(-100, 100, m)  # per-slot defaults
+    vals = np.stack([r.integers(-1000, 1000, m),      # max
+                     r.integers(0, 1 << 40, m),       # sum (int64)
+                     r.integers(-2**62, 2**62, m)])   # min (int64)
+    return dict(v32=v32, v64=v64, idx=idx.astype(np.int32), valid=valid,
+                d64=d64, vals=vals)
+
+
+def _ops(seed):
+    """remote_gather and seg_route on this rank's ops_case: the gathers at
+    a roomy cap and at cap 1 (overflow), the routed records."""
+    S, rank = dist.get_world_size(), dist.get_rank()
+    c = ops_case(seed, S, rank)
+    w = OPS_WIDTH
+    rg, seg_route = dsimplify.make_ops(None, w)
+    mine = slice(rank * w, (rank + 1) * w)
+    t = {k: torch.from_numpy(np.ascontiguousarray(c[k]))
+         for k in ("idx", "valid", "d64", "vals")}
+    local = (torch.from_numpy(c["v32"][mine].copy()),
+             torch.from_numpy(c["v64"][mine].copy()))
+    (o32, o64), ovf = rg(local, t["idx"], t["valid"], 3 * w + 64,
+                         (-7, t["d64"]))
+    _, ovf1 = rg(local, t["idx"], t["valid"], 1, (-7, t["d64"]))
+    lseg, routed, present, sovf = seg_route(
+        (t["vals"][0].to(torch.int32), t["vals"][1], t["vals"][2]),
+        ("max", "sum", "min"), t["idx"], t["valid"], 3 * w + 64)
+    return dict(o32=o32.numpy(), o64=o64.numpy(), ovf=bool(ovf),
+                ovf1=bool(ovf1), lseg=lseg.numpy(), present=present.numpy(),
+                routed=[x.numpy() for x in routed], seg_ovf=bool(sovf))
+
+
+def _uncapped_refusal():
+    """The message of chain_state's refusal of max_len=None."""
+    tips, _, degrees = dsimplify.make_sharded_simplify(None, 64)
+    succ = torch.full((128, 4), -1, dtype=torch.int32)
+    alive = torch.ones(64, dtype=torch.bool)
+    deg, _ = degrees(succ, alive, 0)
+    try:
+        tips(succ, torch.zeros(128, dtype=torch.int64),
+             torch.zeros(64, dtype=torch.int32), alive, 0, 10, deg)
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def _sharded_simplify(graph, params):
+    """simplify_sharded on this rank's part of a graph (succ, okv, counts,
+    n_unique), with a fresh ledger."""
+    succ, okv, counts, n_unique = graph
+    ledger = ExchangeLedger()
+    alive, ovf = dsimplify.simplify_sharded(
+        torch.from_numpy(succ), torch.from_numpy(okv),
+        torch.from_numpy(counts),
+        torch.ones(counts.shape[0], dtype=torch.bool), n_unique, params,
+        ledger=ledger)
+    return dict(alive=alive.numpy(), overflow=ovf, ledger=ledger.summary())
+
 
 def parity(reads, k, min_cov, pad_to, bucket_caps, local_cap, query_caps,
-           jobs):
+           jobs, simplify):
     """This rank's count at each bucket cap (its window stream padded to
     pad_to), its build at each query cap (from the first count's table),
-    and assemble_sharded on each job (name, reads, params, kwargs)."""
+    and assemble_sharded on each job (name, reads, params, kwargs; the
+    kwarg `overrides` sets dist/simplify.py module names for the job).
+    `simplify`: {"graphs": {name: (one (succ, okv, counts, n_unique) a
+    rank, params)}} for simplify_sharded, "ops_seed" (or None) for the
+    remote_gather / seg_route checks, "uncapped" for the max_len=None
+    refusal."""
     S, rank = dist.get_world_size(), dist.get_rank()
     stream = extract_stream(shard_reads(reads, S)[rank], k, "cpu")
     stream = torch.cat([stream, stream.new_full(
@@ -43,12 +138,26 @@ def parity(reads, k, min_cov, pad_to, bucket_caps, local_cap, query_caps,
                                  ledger=ledger.summary()["dist_build"]))
     for name, job_reads, params, kwargs in jobs:
         metrics = Metrics(quiet=True)
+        kwargs = dict(kwargs)
+        overrides = kwargs.pop("overrides", {})
+        saved = {n: getattr(dsimplify, n) for n in overrides}
         try:
+            for n, v in overrides.items():
+                setattr(dsimplify, n, v)
             contigs = assemble_sharded(job_reads, params, metrics=metrics,
                                        device="cpu", **kwargs)
         except ValueError as e:  # a job that must be refused
             contigs = f"ValueError: {e}"
+        finally:
+            for n, v in saved.items():
+                setattr(dsimplify, n, v)
         out["assemble"][name] = dict(contigs=contigs, events=metrics.events)
+    out["simplify"] = {name: _sharded_simplify(g[rank], params)
+                       for name, (g, params) in simplify["graphs"].items()}
+    if simplify.get("ops_seed") is not None:
+        out["ops"] = _ops(simplify["ops_seed"])
+    if simplify.get("uncapped"):
+        out["uncapped"] = _uncapped_refusal()
     return out
 
 
