@@ -75,12 +75,19 @@ Phases (any failure exits non-zero and prints no result line):
      run (golden SHAs, phase walls, peak device bytes, the exchange
      ledger, and a launch at every compaction site of the path), one
      profiled run; then the same with the sharded simplify passes (the
-     default, `[dist sharded …]`): compact_flagged held and timed at its
-     dist_kills, dist_bubble_cands, tails and contig_starts inputs, the
-     timed run's dist_simplify_sharded wall beside the dist_simplify
-     (gather, final state) one, the passes run and the slack rung from
-     the ledger, no fallback to the replicated passes, and one profiled
-     run: the device time and idle share of the sharded passes alone.
+     default, `[dist sharded …]`, sharded end to end): compact_flagged
+     held and timed at its dist_kills, dist_bubble_cands,
+     dist_emit_blocks and dist_emit_heads inputs; the timed run's JAX
+     phase list (dist_simplify_sharded, dist_final_sharded,
+     dist_contigs; no dist_simplify) and no fallback event; the walls of
+     the passes, the final state and the emission; the passes run and
+     the slack rung from the ledger; the fast final's rounds (p1, p2);
+     the dist_final_fast and dist_emit ledger entries; and one profiled
+     run: the device time and idle share of the passes, the final state
+     and the emission, each alone; last `[dist sharded circular]`, the
+     final state's ladder: a 200,000 bp circular genome (100 bp
+     error-free reads, 30x, k = 21) whose fast final falls back to the
+     exact one, its one contig equal to assemble_device's.
 Every profiled block runs under _profiled, which keeps it away from the
 ends of its profiler session and fails when the trace lacks a device
 record of a launch, copy or memset.
@@ -1171,12 +1178,21 @@ def phase_sorter(w, params, golden) -> dict:
 
 
 # compact_flagged sites of the dist path: the replicated simplify's, and
-# the sharded simplify's (whose four own sites are timed)
+# the default sharded path's (whose four own sites are timed: the passes'
+# and the emission's)
 DIST_SITES = ("count_heads", "count_filter", "tips", "bubbles", "kills",
               "contig_starts")
-DIST_SHARDED_TIMED = ("dist_kills", "dist_bubble_cands", "tails",
-                      "contig_starts")
+DIST_SHARDED_TIMED = ("dist_kills", "dist_bubble_cands", "dist_emit_blocks",
+                      "dist_emit_heads")
 DIST_SHARDED_SITES = ("count_heads", "count_filter") + DIST_SHARDED_TIMED
+# the default path's phases (JAX's, genome_tpu/dist/assemble.py:55-170),
+# and the fallbacks it must not take
+DIST_SHARDED_PHASES = ("dist_extract", "dist_count", "dist_build",
+                       "dist_simplify_sharded", "dist_final_sharded",
+                       "dist_contigs")
+DIST_FALLBACKS = ("dist_simplify_overflow_fallback",
+                  "dist_final_fast_fallback", "dist_final_overflow_fallback",
+                  "dist_emit_overflow_fallback")
 
 
 @contextlib.contextmanager
@@ -1212,12 +1228,14 @@ def _dist_e2e(name, w, params, golden, sharded: bool) -> dict:
     each site, each held against the plain version and timed (the dist
     path's own shapes: the count at the routed bucket length and capacity
     2^27, the replicated simplify on the gathered graph; for the sharded
-    one its kill and candidate compactions on a rank's 2^23 canonical and
-    2^24 oriented ids, and the final state and emission on the gathered
-    graph), then a timed run with the launch counters set to 0 just before
-    it; the golden SHA, per-phase walls, peak device bytes, the exchange
-    ledger; for the sharded simplify the passes run and the slack rung
-    reached (from the ledger), and no fallback to the replicated passes."""
+    path its kill and candidate compactions on a rank's 2^23 canonical
+    and 2^24 oriented ids, and the emission's block and head compactions
+    on the routed records), then a timed run with the launch counters
+    set to 0 just before it; the golden SHA, per-phase walls, peak device
+    bytes, the exchange ledger; for the sharded path JAX's phase list and
+    no fallback event, the passes run and the slack rung reached (from
+    the ledger), the fast final's rounds, and the dist_final_fast and
+    dist_emit ledger entries."""
     import torch
     from genome_tpu_torch.assemble.metrics import Metrics
     from genome_tpu_torch.dist import assemble_sharded
@@ -1276,62 +1294,133 @@ def _dist_e2e(name, w, params, golden, sharded: bool) -> dict:
                phases={p: e["wall_s"] for p, e in ends.items()},
                ledger=ledger, compact_shapes=shapes)
     if sharded:
-        fell_back = any(e["event"] == "dist_simplify_overflow_fallback"
-                        for e in m.events)
-        if info["dist_simplify_sharded"]["overflow"] or fell_back:
-            raise AssertionError(f"{label}: the sharded passes overflowed "
-                                 "every rung and fell back")
+        fell = [e["event"] for e in m.events if e["event"] in DIST_FALLBACKS]
+        if tuple(ends) != DIST_SHARDED_PHASES or fell:
+            raise AssertionError(f"{label}: phases {tuple(ends)} (want "
+                                 f"{DIST_SHARDED_PHASES}), fallbacks {fell}")
         passes = {p: ledger[p]["invocations"]
                   for p in ("dist_degrees", "dist_tips", "dist_bubbles")}
         rung = 1 + ledger["dist_degrees"].get("retry_epochs", 0)
+        rounds = next(e for e in m.events
+                      if e["event"] == "dist_final_fast_rounds")
         print(f"[{label}] dist_simplify_sharded="
               f"{ends['dist_simplify_sharded']['wall_s']:.4f} s (the passes) "
-              f"beside dist_simplify={ends['dist_simplify']['wall_s']:.4f} s "
-              f"(gather, final state); passes at the last rung "
-              f"{json.dumps(passes)}; slack rung {rung} (slack "
-              f"{1.35 * 2 ** (rung - 1):.2f})", flush=True)
-        res.update(passes=passes, slack_rung=rung)
+              f"dist_final_sharded={ends['dist_final_sharded']['wall_s']:.4f}"
+              f" s dist_contigs={ends['dist_contigs']['wall_s']:.4f} s; "
+              f"passes at the last rung {json.dumps(passes)}; slack rung "
+              f"{rung} (slack {1.35 * 2 ** (rung - 1):.2f}); "
+              f"dist_final_fast_rounds p1={rounds['p1']} p2={rounds['p2']}; "
+              f"no fallback; peak_mem_bytes={peak}", flush=True)
+        for name in ("dist_final_fast", "dist_emit"):
+            print(f"[{label}] ledger {name}={json.dumps(ledger[name])}",
+                  flush=True)
+        res.update(passes=passes, slack_rung=rung,
+                   final_rounds=dict(p1=rounds["p1"], p2=rounds["p2"]))
     return res
 
 
-def phase_profile_sharded(label, fn, phase_wall_s: float) -> dict:
-    """One more run of `fn` (a sharded assemble_sharded) under
-    torch.profiler, its simplify_sharded call inside a record_function:
+def _dist_circular(smi: str) -> dict:
+    """The final state's ladder on the card: a 200,000 bp circular random
+    genome, 100 bp error-free reads at 30x, k = 21, min_coverage 1,
+    through assemble_sharded on the one-rank NCCL group. The fast final
+    must report the surviving cycle (dist_final_fast_fallback), the exact
+    final run, and the one contig equal assemble_device's on the card."""
+    import torch
+    from genome_tpu_torch.assemble.metrics import Metrics
+    from genome_tpu_torch.assemble.pipeline import assemble_device
+    from genome_tpu_torch.dist import assemble_sharded
+    from genome_tpu_torch.io.simulate import random_genome, simulate_reads
+    from genome_tpu_torch.params import AssemblyParams
+
+    label = "dist sharded circular"
+    reads = simulate_reads(random_genome(200_000, seed=91), read_len=100,
+                           coverage=30, error_rate=0.0, circular=True,
+                           seed=92)
+    params = AssemblyParams(k=21, min_coverage=1)
+    want = assemble_device(reads, params, device="cuda")
+    m = Metrics(quiet=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    contigs = assemble_sharded(reads, params, metrics=m, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ends = {e["phase"]: e for e in m.events if e["event"] == "phase_end"}
+    events = [e["event"] for e in m.events
+              if e["event"] not in ("phase_start", "phase_end")]
+    ledger = next(e for e in m.events if e["event"] == "exchange_ledger")
+    exact = ledger.get("dist_final_exact", {}).get("invocations", 0)
+    print(f"[{label}] {len(reads)} reads P=1 NCCL wall={wall:.4f} s "
+          + " ".join(f"{p}={e['wall_s']:.4f}s" for p, e in ends.items())
+          + f"; events {events}; dist_final_exact invocations {exact}; "
+          f"contigs={len(contigs)} (single device {len(want)}, "
+          f"{len(want[0]) if want else 0} bp) | {smi}", flush=True)
+    for name in ("dist_final_fast", "dist_final_exact", "dist_emit"):
+        if name in ledger:
+            print(f"[{label}] ledger {name}={json.dumps(ledger[name])}",
+                  flush=True)
+    if "dist_final_fast_fallback" not in events or exact < 1 \
+            or len(contigs) != 1 or contigs != want:
+        raise AssertionError(f"{label}: the ladder did not take the exact "
+                             "final, or the contig differs from "
+                             "assemble_device's")
+    return dict(wall_s=wall, phases={p: e["wall_s"] for p, e in ends.items()},
+                events=events, exact_invocations=exact,
+                contig_bp=len(contigs[0]))
+
+
+# the sharded path's stages that phase_profile_sharded annotates: the
+# name each has in dist/assemble.py, and its phase
+SHARDED_SPANS = (("simplify_sharded", "dist_simplify_sharded"),
+                 ("final_state_sharded", "dist_final_sharded"),
+                 ("emit_contigs_sharded", "dist_contigs"))
+
+
+def phase_profile_sharded(label, fn, phase_walls: dict) -> dict:
+    """One more run of `fn` (a default assemble_sharded) under
+    torch.profiler, its simplify_sharded, final_state_sharded and
+    emit_contigs_sharded calls each inside a record_function: for each,
     the device time by kernel of the device records of that call's host
-    calls, and the idle share against `phase_wall_s`, the same phase's
-    unprofiled wall."""
+    calls, and the idle share against `phase_walls` (the same phases'
+    unprofiled walls)."""
     import torch
     from torch.profiler import record_function
     from genome_tpu_torch.dist import assemble as dist_assemble
-    orig = dist_assemble.simplify_sharded
+    origs = {name: getattr(dist_assemble, name) for name, _ in SHARDED_SPANS}
 
-    def annotated(*args, **kwargs):
-        torch.cuda.synchronize()
-        with record_function("dist_simplify_sharded"):
-            out = orig(*args, **kwargs)
+    def annotated(name):
+        def call(*args, **kwargs):
             torch.cuda.synchronize()
-        return out
-    dist_assemble.simplify_sharded = annotated
+            with record_function(name):
+                out = origs[name](*args, **kwargs)
+                torch.cuda.synchronize()
+            return out
+        return call
+    for name in origs:
+        setattr(dist_assemble, name, annotated(name))
     try:
         with _profiled(label) as p:
             fn()
     finally:
-        dist_assemble.simplify_sharded = orig
-    span = next(e for e in p.events if e.get("name") == "dist_simplify_sharded"
-                and e.get("cat") == "user_annotation")
-    ev = _by_name(_block_rows(f"{label} passes", p.events,
-                              "dist_simplify_sharded"))
-    busy_ms = sum(ms for _, ms, _ in ev)
-    idle = 1 - busy_ms / (phase_wall_s * 1e3)
-    print(f"[{label}] dist_simplify_sharded: device busy={busy_ms:.1f} ms; "
-          f"unprofiled phase wall={phase_wall_s * 1e3:.1f} ms idle_share="
-          f"{idle:.3f} (profiled span {span['dur'] / 1e3:.1f} ms)",
-          flush=True)
-    for name, ms, n in ev[:12]:
-        print(f"[{label}]   {ms:8.2f} ms x{n:<5d} {name[:90]}", flush=True)
-    return dict(device_busy_ms=busy_ms, idle_share=idle,
-                top=[dict(name=n[:90], ms=ms, records=c)
-                     for n, ms, c in ev[:12]])
+        for name, orig in origs.items():
+            setattr(dist_assemble, name, orig)
+    res = {}
+    for name, phase in SHARDED_SPANS:
+        span = next(e for e in p.events if e.get("name") == name
+                    and e.get("cat") == "user_annotation")
+        ev = _by_name(_block_rows(f"{label} {phase}", p.events, name))
+        busy_ms = sum(ms for _, ms, _ in ev)
+        idle = 1 - busy_ms / (phase_walls[phase] * 1e3)
+        print(f"[{label}] {phase} ({name}): device busy={busy_ms:.1f} ms; "
+              f"unprofiled phase wall={phase_walls[phase] * 1e3:.1f} ms "
+              f"idle_share={idle:.3f} (profiled span "
+              f"{span['dur'] / 1e3:.1f} ms)", flush=True)
+        for kname, ms, n in ev[:8]:
+            print(f"[{label}]   {ms:8.2f} ms x{n:<5d} {kname[:90]}",
+                  flush=True)
+        res[phase] = dict(device_busy_ms=busy_ms, idle_share=idle,
+                          top=[dict(name=n[:90], ms=ms, records=c)
+                               for n, ms, c in ev[:8]])
+    return res
 
 
 def phase_dist(legacy, repeats, params, golden, smi: str) -> dict:
@@ -1401,20 +1490,26 @@ def phase_dist(legacy, repeats, params, golden, smi: str) -> dict:
             for name, w in (("legacy", legacy), ("repeats", repeats)):
                 sh = e2e[f"sharded {name}"] = _dist_e2e(
                     name, w, params, golden, sharded=True)
+                ph, rep = sh["phases"], e2e[name]["phases"]
                 print(f"[dist sharded {name}] dist_simplify_sharded "
-                      f"{sh['phases']['dist_simplify_sharded']:.4f} s beside "
-                      f"the replicated branch's dist_simplify "
-                      f"{e2e[name]['phases']['dist_simplify']:.4f} s (this "
-                      f"call); e2e {sh['wall_s']:.4f} s beside "
-                      f"{e2e[name]['wall_s']:.4f} s | {smi}", flush=True)
+                      f"{ph['dist_simplify_sharded']:.4f} + "
+                      f"dist_final_sharded {ph['dist_final_sharded']:.4f} + "
+                      f"dist_contigs {ph['dist_contigs']:.4f} s beside the "
+                      f"replicated branch's dist_simplify "
+                      f"{rep['dist_simplify']:.4f} + dist_contigs "
+                      f"{rep['dist_contigs']:.4f} s (this call); e2e "
+                      f"{sh['wall_s']:.4f} s beside {e2e[name]['wall_s']:.4f}"
+                      f" s | {smi}", flush=True)
             e2e["sharded legacy"]["profile"] = phase_profile_sharded(
                 "dist sharded profile legacy", lambda: assemble_sharded(
                     legacy["err"], params, device="cuda"),
-                e2e["sharded legacy"]["phases"]["dist_simplify_sharded"])
+                e2e["sharded legacy"]["phases"])
+            circular = _dist_circular(smi)
         finally:
             dist.destroy_process_group()
     return dict(count_launches=launches, count_wall_s=count_s,
-                a2a_ms=a2a_ms, a2a_bytes=a2a_bytes, e2e=e2e)
+                a2a_ms=a2a_ms, a2a_bytes=a2a_bytes, e2e=e2e,
+                circular=circular)
 
 
 def main() -> int:

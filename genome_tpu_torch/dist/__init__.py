@@ -12,16 +12,27 @@ every rank takes the same branch.
 
 Ported: partition (owner hash), mesh (group set-up, collectives, the
 local launcher run_local), ledger, count, build, the sharded simplify
-passes and their host loop, and assemble_sharded with the sharded or
-the replicated simplify. The sharded final state and emission are the
-next slices (ROADMAP.md).
+passes and their host loop, the sharded final state (the exact one and
+the ruler-ranking fast one, with final_state_sharded's ladder), the
+sharded emission (emit_contigs_sharded, and write_fasta_parallel for
+per-rank slices), and assemble_sharded, sharded end to end by default.
+multihost and launch are the next slice (ROADMAP.md).
 """
 
 from genome_tpu_torch.dist.assemble import assemble_sharded, shard_reads
+from genome_tpu_torch.dist.emit import (emit_contigs_sharded,
+                                        make_sharded_emit,
+                                        write_fasta_parallel)
 from genome_tpu_torch.dist.mesh import run_local
 from genome_tpu_torch.dist.partition import owner_of_np
-from genome_tpu_torch.dist.simplify import (make_sharded_simplify,
+from genome_tpu_torch.dist.simplify import (final_state_sharded,
+                                            make_sharded_final,
+                                            make_sharded_final_fast,
+                                            make_sharded_simplify,
                                             simplify_sharded)
 
-__all__ = ["assemble_sharded", "make_sharded_simplify", "owner_of_np",
-           "run_local", "shard_reads", "simplify_sharded"]
+__all__ = ["assemble_sharded", "emit_contigs_sharded", "final_state_sharded",
+           "make_sharded_emit", "make_sharded_final",
+           "make_sharded_final_fast", "make_sharded_simplify", "owner_of_np",
+           "run_local", "shard_reads", "simplify_sharded",
+           "write_fasta_parallel"]

@@ -4,9 +4,15 @@ reads --split--> per-rank extraction
       --all_to_all #1--> sharded count at the k-mer owners
       --all_to_all #2/#3--> sharded graph build (boundary probes, replies)
       --> sharded simplify (dist/simplify.py: remote-gather pointer
-          doubling; the replicated passes when its slack ladder is used up)
-      --all_gather--> the final chain state and emission of the
-          single-device path on every rank.
+          doubling) --> sharded final state (ruler ranking, the exact
+          final on a surviving cycle) --> sharded emission (dist/emit.py:
+          blocks routed by hash(head, dist // BLOCK)).
+
+After the count no rank holds an array of the global graph's size. Each
+sharded stage has JAX's fallback: a used-up slack ladder of the passes
+or of the final state gathers the graph on every rank for the
+single-device passes or final state; an emission that overflows every
+try emits from the gathered final state.
 
 SPMD: every rank of the group calls assemble_sharded with the same reads
 and gets the same contigs. Every pin is k-mer-value-based, so the contigs
@@ -24,9 +30,11 @@ from genome_tpu_torch.assemble.pipeline import (_pow2_at_least,
                                                 simplify_with_metrics)
 from genome_tpu_torch.dist.build import sharded_build
 from genome_tpu_torch.dist.count import sharded_count, shrink_tables
+from genome_tpu_torch.dist.emit import emit_contigs_sharded
 from genome_tpu_torch.dist.ledger import ExchangeLedger
 from genome_tpu_torch.dist.mesh import all_gather_rows, all_max, check_device
-from genome_tpu_torch.dist.simplify import simplify_sharded
+from genome_tpu_torch.dist.simplify import (final_state_sharded,
+                                            simplify_sharded)
 from genome_tpu_torch.graph.contigs import emit_contigs_device
 from genome_tpu_torch.graph.simplify import final_chain_state
 from genome_tpu_torch.kernels.keys import SENTINEL
@@ -52,12 +60,14 @@ def assemble_sharded(reads, params: AssemblyParams | None = None,
     single-device pipeline's.
 
     The count and the build run sharded. With sharded_simplify (the
-    default, as in JAX) the tip and bubble passes run sharded too, and
-    the graph and the alive mask are then gathered on every rank for the
-    final chain state and emission (JAX's branch after a sharded-final
-    overflow; the sharded final state is the next slice). Without it, or
-    when the sharded passes' slack ladder is used up, every rank runs
-    the replicated passes on the gathered graph. `device` is the rank's
+    default, as in JAX) the tip and bubble passes, the final state and
+    the emission run sharded too: phases dist_simplify_sharded,
+    dist_final_sharded, dist_contigs. A used-up ladder of the passes or
+    of the final state gathers the graph and the alive mask on every
+    rank for the replicated passes or final state (phases dist_simplify,
+    dist_contigs); an emission that overflows every try emits from the
+    gathered final state. Without sharded_simplify every rank runs the
+    replicated passes on the gathered graph. `device` is the rank's
     device and must match the group's backend (a CUDA device with NCCL,
     the CPU with gloo)."""
     params = params or AssemblyParams()
@@ -126,6 +136,34 @@ def assemble_sharded(reads, params: AssemblyParams | None = None,
             if ovf:
                 alive_sh = None
                 metrics.log("dist_simplify_overflow_fallback")
+
+    if alive_sh is not None:
+        # the final state stays sharded (no rank holds a global-graph
+        # array); only the emission's fixed-capacity outputs are gathered
+        with metrics.phase("dist_final_sharded") as info:
+            head, dist_, primary, alive_o, f_ovf = final_state_sharded(
+                succ, okv, counts, alive_sh, n_unique, group, metrics,
+                ledger)
+            info["overflow"] = f_ovf
+        if not f_ovf:
+            with metrics.phase("dist_contigs") as info:
+                contigs, ok = emit_contigs_sharded(
+                    head, dist_, primary, alive_o, okv, params.k,
+                    params.min_contig_len, group, ledger)
+                if not ok:
+                    metrics.log("dist_emit_overflow_fallback")
+                    fs = dict(head=all_gather_rows(head, group),
+                              dist=all_gather_rows(dist_, group),
+                              primary=all_gather_rows(primary, group),
+                              alive_o=all_gather_rows(alive_o, group))
+                    contigs = emit_contigs_device(
+                        fs, all_gather_rows(okv, group), params.k,
+                        params.min_contig_len, node_primary=True)
+                info["n_contigs"] = len(contigs)
+            metrics.log("exchange_ledger", **ledger.summary())
+            return contigs
+        del head, dist_, primary, alive_o
+        metrics.log("dist_final_overflow_fallback")
 
     # every rank holds the gathered graph. Rows past each rank's n_unique
     # are invalid, so the valid mask has a hole at the tail of every

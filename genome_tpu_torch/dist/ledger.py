@@ -13,6 +13,15 @@ A call at a new key (a capacity retry, a slack rung) archives the cost
 and invocations before it as a retry epoch, as a JAX retrace archives
 them. The caller counts each call with `invoke(name)`.
 
+An early-exit loop (the sharded final state's doubling phases, a JAX
+`while_loop` under `loop(cap, dynamic=True)`) is costed as JAX traces
+it: `loop(cap)` records its first round's all_to_alls and psums `cap`
+times, into `a2a`/`mb_*` and into `dyn_a2a_cap`/`dyn_mb_cap`, and its
+later rounds record nothing; the rounds observed leave through the
+caller's own event. `record_psum()` counts one agreed exit test (a JAX
+psum). The other programs record neither, and keep `psum` and `dyn_*`
+at 0, as in JAX.
+
 `summary()` keeps the JAX keys and numbers: a key costs 8 bytes on the
 wire in both (two uint32 there, one int64 here), a response 4, and the
 sharded simplify's columns are JAX's 32-bit words. Of each
@@ -24,6 +33,7 @@ run: the caller creates it and passes it down.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 
@@ -31,17 +41,18 @@ from dataclasses import dataclass
 class _ProgramCost:
     a2a: int = 0            # all_to_all launches per invocation
     bytes: int = 0          # bytes sent per rank, all a2as summed
+    psum: int = 0           # agreed exit tests per invocation
+    dyn_a2a: int = 0        # the part of a2a under early-exit loops,
+    dyn_bytes: int = 0      # at their round caps
 
     def as_dict(self, cross: float) -> dict:
-        # psum and the round-capped dyn_* stay 0 until a program with a
-        # psum or an early-exit loop (the sharded final state) records them
         return {
             "a2a": self.a2a,
-            "psum": 0,
+            "psum": self.psum,
             "mb_per_shard": round(self.bytes / 1e6, 3),
             "mb_crossing": round(self.bytes * cross / 1e6, 3),
-            "dyn_a2a_cap": 0,
-            "dyn_mb_cap": 0.0,
+            "dyn_a2a_cap": self.dyn_a2a,
+            "dyn_mb_cap": round(self.dyn_bytes / 1e6, 3),
         }
 
 
@@ -52,6 +63,7 @@ class ExchangeLedger:
         self.archived: dict[str, list] = {}
         self._keys: dict[str, object] = {}
         self._current: str | None = None
+        self._loop_cap = 0      # the open early-exit loop's cap, or 0
         self.num_shards = 0
 
     def program(self, name: str, key) -> None:
@@ -68,7 +80,25 @@ class ExchangeLedger:
             self.invocations[name] = 0
         self._keys[name] = key
         self._current = name
+        self._loop_cap = 0
         self.programs[name] = _ProgramCost()
+
+    @contextlib.contextmanager
+    def loop(self, cap: int):
+        """An early-exit loop of at most `cap` rounds (JAX's
+        `loop(cap, dynamic=True)` around a while_loop). Yields
+        `round_done`, which the caller calls at the end of each round:
+        the first round's records count `cap` times, the later rounds'
+        not at all."""
+        current = self._current
+        self._loop_cap = max(1, int(cap))
+
+        def round_done():
+            self._current = None
+        try:
+            yield round_done
+        finally:
+            self._current, self._loop_cap = current, 0
 
     def record_a2a(self, num_shards: int, nbytes: int) -> None:
         """One all_to_all that sends `nbytes` from this rank."""
@@ -76,8 +106,17 @@ class ExchangeLedger:
             return
         self.num_shards = num_shards
         c = self.programs[self._current]
-        c.a2a += 1
-        c.bytes += nbytes
+        mult = self._loop_cap or 1
+        c.a2a += mult
+        c.bytes += nbytes * mult
+        if self._loop_cap:
+            c.dyn_a2a += mult
+            c.dyn_bytes += nbytes * mult
+
+    def record_psum(self) -> None:
+        """One agreed exit test (a JAX psum)."""
+        if self._current is not None:
+            self.programs[self._current].psum += self._loop_cap or 1
 
     def invoke(self, name: str) -> None:
         self.invocations[name] = self.invocations.get(name, 0) + 1

@@ -26,11 +26,17 @@ from the start with doubled slack (the ladder), or the caller falls back
 to the replicated passes. Semantics are those of graph/simplify.py
 (SEMANTICS §5): every pin is k-mer-value based.
 
-The uncapped chain state (cycle heads by min-doubling) and the sharded
-final state are the next slice (ROADMAP.md queue 1, item 2).
+The sharded final state for emission stays sharded too: the exact one
+(make_sharded_final: the uncapped chain state, cycles broken at their
+minimum-okv node by min-doubling) and the ruler-ranking fast one
+(make_sharded_final_fast: early-exit doubling frozen at every
+RULER_STRIDE-th id, then doubling over the rulers alone), tried first by
+final_state_sharded's ladder.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -51,9 +57,20 @@ I64 = torch.int64
 # test may override it.
 _KILL_MD = 4096
 
-# rungs of the slack ladder (1.35, doubled each rung) before the caller
-# falls back to the replicated passes
+# rungs of a slack ladder (1.35, doubled each rung): the passes' before
+# the caller falls back to the replicated passes, and each of the final
+# state's two (fast, then exact)
 _SLACK_RUNGS = 3
+
+# ruler spacing of the fast final state: ids that are multiples of it
+# are rulers (a power of two; the gap tail ~ STRIDE * ln(ids))
+RULER_STRIDE = 16
+
+# the fast final's phase-1 round cap: it covers ruler gaps up to
+# 2^(cap - 1); a longer gap, or a cycle without a ruler, exits
+# unconverged (ok = False) into the exact final. P(gap > 4096) ~
+# ids * (15/16)^4096 ~ 0.
+_P1_CAP = 13
 
 
 def _bub_mc(cl2: int, slack: float) -> int:
@@ -244,8 +261,8 @@ def make_sharded_simplify(group, local_capacity: int, slack: float = 1.35,
                           tip_max_len: int | None = None,
                           bubble_max_len: int | None = None,
                           ledger: ExchangeLedger | None = None):
-    """The sharded passes at one rung of the slack ladder: (tips,
-    bubbles, degrees), per-rank functions.
+    """The sharded passes and the exact final state at one rung of the
+    slack ladder: (tips, bubbles, final, degrees), per-rank functions.
 
     Each takes this rank's tensors: succ [cl2, 4] int32 (global oriented
     ids), okv [cl2] int64, counts [cl] int32, alive [cl] bool and n_loc,
@@ -260,6 +277,8 @@ def make_sharded_simplify(group, local_capacity: int, slack: float = 1.35,
     the pass thresholds. Doubling stops after ~log2(max_len) rounds, as
     in the local passes, and the cycle machinery is skipped: the
     candidates' ~cyc_head guard needs only the prev[p] gather.
+    final(succ, okv, counts, alive, n_loc) runs every doubling round and
+    the cycle machinery: see make_sharded_final.
     """
     S, me = dist.get_world_size(group), dist.get_rank(group)
     cl = local_capacity
@@ -285,23 +304,26 @@ def make_sharded_simplify(group, local_capacity: int, slack: float = 1.35,
         ids_g = me * cl2 + torch.arange(cl2, dtype=I32, device=dev)
         return valid_node, ids_g, torch.repeat_interleave(alive & valid_node, 2)
 
-    def chain_state(okv, counts, alive_o, ids_g, max_len, deg):
-        if max_len is None:
-            raise NotImplementedError(
-                "chain_state with max_len=None (cycle heads by "
-                "min-doubling) serves the sharded final state, queue 1 "
-                "item 2 of ROADMAP.md, not yet ported")
-        dev = okv.device
-        outdeg, usucc, next_u, prev_u = deg
-        rnds = min(rounds, max(2, int(max_len).bit_length() + 1))
-        # head + distance doubling over the unbroken prev links (remote
-        # p[p]; self-pointers are fixpoints and are not requested)
-        p = torch.where(prev_u >= 0, prev_u, ids_g)
-        d = (prev_u >= 0).to(I32)
-        ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    def double(prev, ids_g, rnds, ovf):
+        """Head + distance doubling over the prev links (remote p[p];
+        self-pointers are fixpoints and are not requested)."""
+        p = torch.where(prev >= 0, prev, ids_g)
+        d = (prev >= 0).to(I32)
         for _ in range(rnds):
             (p2, dp), o = rg((p, d), p, p != ids_g, gcap1, (p, 0))
             p, d, ovf = p2, d + dp, ovf | o
+        return p, d, ovf
+
+    def chain_state(okv, counts, alive_o, ids_g, max_len, deg):
+        """Chain heads, distances and per-head aggregates. max_len caps
+        the doubling at ~log2(max_len) rounds (the passes); None runs
+        every round and breaks the cycles (the exact final state)."""
+        dev = okv.device
+        outdeg, usucc, next_u, prev_u = deg
+        rnds = rounds if max_len is None else min(
+            rounds, max(2, int(max_len).bit_length() + 1))
+        p, d, ovf = double(prev_u, ids_g, rnds,
+                           torch.zeros((), dtype=torch.bool, device=dev))
         # p == self does NOT imply prev_u[self] < 0: a self-loop node
         # (a homopolymer run >= k+1) has prev_u[v] = v. The gather takes
         # self-pointers too (answered locally), or 1-cycles escape the
@@ -309,6 +331,25 @@ def make_sharded_simplify(group, local_capacity: int, slack: float = 1.35,
         (prev_p,), o = rg((prev_u,), p, alive_o, gcap1, (-1,))
         ovf |= o
         in_cycle = alive_o & (prev_p >= 0)
+        if max_len is None:
+            # each cycle's representative: its minimum (okv, id), by
+            # min-doubling over the unbroken links (a gather at self
+            # would return the own carry: not requested). okv is a
+            # non-negative int64, so `<` orders it as JAX's (hi, lo)
+            # pair compare does.
+            mokv, mid, q = okv, ids_g, torch.where(prev_u >= 0, prev_u,
+                                                   ids_g)
+            for _ in range(rounds):
+                (cokv, cid, q2), o = rg((mokv, mid, q), q, q != ids_g,
+                                        gcap1, (mokv, mid, q))
+                take = cokv < mokv
+                mokv = torch.where(take, cokv, mokv)
+                mid = torch.where(take, cid, mid)
+                q, ovf = q2, ovf | o
+            # head and distance again, with each cycle broken at its rep
+            rep_break = in_cycle & (mid == ids_g)
+            p, d, ovf = double(torch.where(rep_break, -1, prev_u), ids_g,
+                               rounds, ovf)
         head = torch.where(alive_o, p, -1)
         dist_ = torch.where(alive_o, d, 0)
         is_head = alive_o & (head == ids_g)
@@ -347,9 +388,10 @@ def make_sharded_simplify(group, local_capacity: int, slack: float = 1.35,
         twin = torch.where(tail_of >= 0,
                            torch.where((tail_of & 1) == 1, t0, t1), INT64_MAX)
         twin = torch.where(is_head & cyc_head, cyc_min, twin)
-        return dict(outdeg=outdeg, usucc=usucc, head=head, is_head=is_head,
-                    length=length, cyc_head=cyc_head, tail_of=tail_of,
-                    cov=cov, twin=twin, alive_o=alive_o, ovf=ovf)
+        return dict(outdeg=outdeg, usucc=usucc, head=head, dist=dist_,
+                    is_head=is_head, length=length, cyc_head=cyc_head,
+                    tail_of=tail_of, cov=cov, twin=twin, alive_o=alive_o,
+                    ovf=ovf)
 
     def kill_heads(alive, st, doomed_heads):
         """doomed_heads: [cl2] bool at the head's owner rank."""
@@ -520,7 +562,210 @@ def make_sharded_simplify(group, local_capacity: int, slack: float = 1.35,
         # the router's view of `changed`; the caller agrees it
         return alive2, doomed_rec.any(), ovf | o6, deg2, kovf
 
-    return tips, bubbles, degrees
+    def final(succ, okv, counts, alive, n_loc):
+        """The exact final state for emission: (head, dist, primary_node,
+        alive_o, ovf), each [cl2] on this rank. Cycles are broken (the
+        uncapped chain state), and each head's primary flag (okv <= its
+        twin's) is gathered back to every member of its chain, so that
+        no rank holds an array of the global graph's size."""
+        _program("dist_final_exact")
+        _, ids_g, alive_o = _setup(alive, n_loc, succ.device)
+        *deg, ovf = _degrees_links(succ, alive_o, rg, gcap4, gcap1)
+        st = chain_state(okv, counts, alive_o, ids_g, None, deg)
+        head = st["head"]
+        prim_head = st["is_head"] & (okv <= st["twin"])
+        (pm,), o = rg((prim_head.to(I32),), head.clamp(min=0),
+                      alive_o & (head >= 0), gcap1, (0,))
+        primary = alive_o & (head >= 0) & (pm != 0)
+        return head, st["dist"], primary, alive_o, ovf | st["ovf"] | o
+
+    return tips, bubbles, final, degrees
+
+
+def make_sharded_final(group, local_capacity: int, slack: float = 1.35,
+                       ledger: ExchangeLedger | None = None):
+    """The exact sharded final state at one slack rung (make_sharded_
+    simplify's `final`)."""
+    return make_sharded_simplify(group, local_capacity, slack,
+                                 ledger=ledger)[2]
+
+
+def make_sharded_final_fast(group, local_capacity: int, slack: float = 1.35,
+                            ledger: ExchangeLedger | None = None):
+    """The sharded final state by ruler ranking: a per-rank function
+    (succ, okv, counts, alive, n_loc) -> (head, dist, primary_node,
+    alive_o, ok, ovf, (p1_rounds, p2_rounds)).
+
+    Where the exact final pays ~log2(ids) full-size gather rounds three
+    times (doubling, the cycles' min-doubling, doubling again), this
+    runs phase 1, an early-exit (p, d) doubling frozen at rulers and
+    heads (~log2 of the longest ruler gap, about 8-13 rounds); phase 2,
+    the same doubling over the ruler arrays alone (1/RULER_STRIDE of the
+    ids); then the composition, one tail-to-head twin routing and one
+    primary gather-back. It has no cycle machinery: a surviving cycle or
+    a ruler gap past _P1_CAP rounds gives ok = False (agreed: each
+    phase's exit is), and the caller takes the exact final. ok and ovf
+    are 0-dim tensors of this rank; the caller agrees them."""
+    S, me = dist.get_world_size(group), dist.get_rank(group)
+    cl = local_capacity
+    cl2 = 2 * cl
+    if cl2 % RULER_STRIDE:
+        raise ValueError(f"2 * local_capacity = {cl2} is not a multiple of "
+                         f"RULER_STRIDE = {RULER_STRIDE}")
+    rl = cl2 // RULER_STRIDE  # rulers a rank
+    rounds_cap = max(1, (S * cl2 - 1).bit_length() + 1)
+    p1_cap = min(rounds_cap, _P1_CAP)
+    gcap1 = _cap_for(cl2, S, slack)
+    gcap4 = _cap_for(4 * cl2, S, slack)
+    rcap = _cap_for(rl, S, slack)
+    caps = (S, cl, gcap1, gcap4, rcap)  # the ledger's program key
+    rg, seg_route = make_ops(group, cl2, ledger)
+    # local ruler j is global id me * cl2 + j * RULER_STRIDE, global
+    # ruler index me * rl + j: contiguous a rank, so the ruler gather's
+    # owner idx // rl is exact
+    rg_rul, _ = make_ops(group, rl, ledger)
+    umask = RULER_STRIDE - 1
+
+    def early_exit(step, carry, cap):
+        """carry, changed = step(carry) until no rank changed or `cap`
+        rounds: JAX's while_loop, whose exit test psum(changed) > 0 is
+        the host-read agreement all_any_each here; costed in the ledger
+        at its cap. Returns (carry, rounds run, converged)."""
+        go, i = True, 0
+        scope = (ledger.loop(cap) if ledger is not None
+                 else contextlib.nullcontext(lambda: None))
+        with scope as round_done:
+            while go and i < cap:
+                carry, ch = step(carry)
+                if ledger is not None:
+                    ledger.record_psum()
+                go = all_any_each([ch], group)[0]
+                i += 1
+                round_done()
+        return carry, i, not go
+
+    def fast(succ, okv, counts, alive, n_loc):
+        if ledger is not None:
+            ledger.program("dist_final_fast", caps)
+        dev = succ.device
+        valid_node = torch.arange(cl, device=dev) < n_loc
+        ids_g = me * cl2 + torch.arange(cl2, dtype=I32, device=dev)
+        alive_o = torch.repeat_interleave(alive & valid_node, 2)
+        _, _, next_u, prev_u, o = _degrees_links(succ, alive_o, rg, gcap4,
+                                                 gcap1)
+        ovf = [o]
+
+        def p1(carry):
+            """(p, d) doubling frozen at rulers and at heads (a head
+            gathers itself: p[p] == p)."""
+            p, d = carry
+            adv = (p & umask) != 0
+            (pg, dg), o = rg((p, d), p, adv, gcap1, (p, 0))
+            ovf.append(o)
+            return ((torch.where(adv, pg, p), d + torch.where(adv, dg, 0)),
+                    (adv & (pg != p)).any())
+
+        def p2(carry):
+            """The same over the ruler arrays: a ruler whose target is a
+            ruler jumps."""
+            rp, rd = carry
+            adv = (rp & umask) == 0
+            (pg, dg), o = rg_rul((rp, rd), (rp // RULER_STRIDE).clamp(min=0),
+                                 adv, rcap, (rp, 0))
+            ovf.append(o)
+            return ((torch.where(adv, pg, rp), rd + torch.where(adv, dg, 0)),
+                    (adv & (pg != rp)).any())
+
+        (p, d), i1, p1_ok = early_exit(
+            p1, (torch.where(prev_u >= 0, prev_u, ids_g),
+                 (prev_u >= 0).to(I32)), p1_cap)
+        (rp, rd), i2, p2_ok = early_exit(
+            p2, (p[::RULER_STRIDE].contiguous(),
+                 d[::RULER_STRIDE].contiguous()), rounds_cap)
+
+        # compose: the nearest ruler-or-head ancestor -> its ranked head.
+        # A rank asks one owner for at most rl distinct rulers (those it
+        # owns), so capacity rl cannot overflow.
+        a_rul = (p & umask) == 0
+        (hp, hd), o = rg_rul((rp, rd), (p // RULER_STRIDE).clamp(min=0),
+                             a_rul, rl, (p, 0))
+        ovf.append(o)
+        head = torch.where(alive_o, torch.where(a_rul, hp, p), -1)
+        dist_ = torch.where(alive_o, d + torch.where(a_rul, hd, 0), 0)
+        is_head = alive_o & (head == ids_g)
+
+        # each head's twin okv = okv(rc(tail)): one tail a chain (a cycle
+        # has none, and ok excludes cycles), routed to the head's owner
+        is_tail = alive_o & (next_u == -1)
+        lseg, (r_okv,), _, o = seg_route(
+            (_pairswap(okv),), ("min",), head.clamp(min=0),
+            is_tail & (head >= 0), gcap1)
+        ovf.append(o)
+        twin = _seg_reduce(r_okv, lseg.long(), cl2, "min", INT64_MAX)
+
+        # the primary flag, set at the head's owner and gathered back to
+        # every member; prev_u rides along: a composed head with a live
+        # predecessor is an undetected cycle (ok = False)
+        prim_head = is_head & (okv <= twin)
+        (pm, pv), o = rg((prim_head.to(I32), prev_u), head.clamp(min=0),
+                         alive_o & (head >= 0), gcap1, (0, -1))
+        ovf.append(o)
+        primary = alive_o & (head >= 0) & (pm != 0)
+        head_bad = (alive_o & (head >= 0) & (pv >= 0)).any()
+        ok = ~head_bad & p1_ok & p2_ok
+        return (head, dist_, primary, alive_o, ok,
+                torch.stack(ovf).any(), (i1, i2))
+
+    return fast
+
+
+def final_state_sharded(succ, okv, counts, alive, n_loc: int, group=None,
+                        metrics=None, ledger: ExchangeLedger | None = None):
+    """The sharded final state with its ladder: this rank's part; every
+    rank of the group calls it.
+
+    The ruler-ranking fast final first, retried with doubled slack on a
+    route overflow (_SLACK_RUNGS rungs); its ok = False is structural (a
+    cycle survived simplification, or a ruler gap passed the round cap),
+    so it goes straight to the exact final, which has a ladder of its
+    own. Every flag is agreed before a branch.
+
+    Returns (head, dist, primary_node, alive_o, overflowed): this rank's
+    [cl2] tensors, and True only when the exact ladder was used up."""
+    cl = alive.shape[0]
+    slack = 1.35
+    for _ in range(_SLACK_RUNGS):
+        fast = make_sharded_final_fast(group, cl, slack, ledger)
+        head, dist_, primary, alive_o, ok, ovf, rnds = fast(
+            succ, okv, counts, alive, n_loc)
+        if ledger is not None:
+            ledger.invoke("dist_final_fast")
+        ovf, bad = all_any_each([ovf, ~ok], group)
+        if not ovf:
+            if not bad:
+                if metrics is not None:
+                    metrics.log("dist_final_fast_rounds", p1=rnds[0],
+                                p2=rnds[1])
+                return head, dist_, primary, alive_o, False
+            if metrics is not None:
+                metrics.log("dist_final_fast_fallback")
+            break
+        slack *= 2.0
+        if metrics is not None:
+            metrics.log("dist_final_fast_overflow_retry", slack=slack)
+    slack = 1.35
+    for _ in range(_SLACK_RUNGS):
+        final = make_sharded_final(group, cl, slack, ledger)
+        head, dist_, primary, alive_o, ovf = final(succ, okv, counts, alive,
+                                                   n_loc)
+        if ledger is not None:
+            ledger.invoke("dist_final_exact")
+        if not all_any_each([ovf], group)[0]:
+            return head, dist_, primary, alive_o, False
+        slack *= 2.0
+        if metrics is not None:
+            metrics.log("dist_final_overflow_retry", slack=slack)
+    return head, dist_, primary, alive_o, True
 
 
 def simplify_sharded(succ, okv, counts, alive, n_loc: int, params,
@@ -540,7 +785,7 @@ def simplify_sharded(succ, okv, counts, alive, n_loc: int, params,
     alive0 = alive
     slack = 1.35
     for _attempt in range(_SLACK_RUNGS):
-        tips, bubbles, degrees = make_sharded_simplify(
+        tips, bubbles, _, degrees = make_sharded_simplify(
             group, alive.shape[0], slack, params.tip_len_eff,
             params.bubble_len_eff, ledger)
 

@@ -35,16 +35,22 @@ def _assemble(starts, ends, first_kmers, codes, k: int,
     return sorted(out)
 
 
-def emit_contigs(final_state, okv, k: int,
-                 min_contig_len: int = 0) -> list[str]:
+def emit_contigs(final_state, okv, k: int, min_contig_len: int = 0,
+                 node_primary: bool = False) -> list[str]:
     """Assemble canonical contig strings from chain state on the host.
+
+    node_primary: `primary` is a per-node flag (each head's flag already
+    gathered to every member of its chain: the sharded final state's
+    form) instead of a per-head flag read at each node's head.
     Returns the sorted canonical contig list."""
     head = _host(final_state["head"]).astype(np.int64)
     dist = _host(final_state["dist"])
     primary = _host(final_state["primary"])
     alive_o = _host(final_state["alive_o"])
     okv = _host(okv)
-    sel = alive_o & (head >= 0) & primary[np.clip(head, 0, None)]
+    if not node_primary:
+        primary = primary[np.clip(head, 0, None)]
+    sel = alive_o & (head >= 0) & primary
     if not sel.any():
         return []
     vh, vd, vv = head[sel], dist[sel], okv[sel]
@@ -56,13 +62,16 @@ def emit_contigs(final_state, okv, k: int,
     return _assemble(starts, ends, vv[starts], last, k, min_contig_len)
 
 
-def _chain_order_device(head, dist, primary, alive_o, okv):
+def _chain_order_device(head, dist, primary, alive_o, okv,
+                        node_primary: bool):
     """Device side of emit_contigs_device. Returns (words [ceil(n2/16)]
     int64 holding 16 packed bases each, in chain order; the sorted head of
     each slot; the contig-start flags; n_sel)."""
     n2 = head.shape[0]
     dev = head.device
-    sel = alive_o & (head >= 0) & primary[head.clamp(min=0)]
+    if not node_primary:
+        primary = primary[head.clamp(min=0)]
+    sel = alive_o & (head >= 0) & primary
     # node ids are int32, so head, dist < n2 < 2^31 and the key < 2^62
     key = torch.where(sel, head.to(torch.int64) * n2 + dist, INT64_MAX)
     ks, order = torch.sort(key)
@@ -79,10 +88,12 @@ def _chain_order_device(head, dist, primary, alive_o, okv):
 
 
 def emit_contigs_device(final_state, okv, k: int, min_contig_len: int = 0,
+                        node_primary: bool = False,
                         contig_cap: int | None = None) -> list[str]:
     """emit_contigs with the ordering, start compaction and base packing
     done on the device; identical output.
 
+    node_primary: as emit_contigs's.
     contig_cap: size of the contig-start buffer, default max(4096,
     n2 / 64). The compaction's total is exact, so an overflow is redone
     once at exactly the size needed."""
@@ -92,7 +103,7 @@ def emit_contigs_device(final_state, okv, k: int, min_contig_len: int = 0,
         return []
     words, hs, first, n_sel = _chain_order_device(
         head, final_state["dist"], final_state["primary"],
-        final_state["alive_o"], okv)
+        final_state["alive_o"], okv, node_primary)
     cap = contig_cap or max(4096, n2 >> 6)
     starts, n_contigs, _ = compact_ids(first, cap, site="contig_starts")
     n_sel, n_contigs = torch.stack([n_sel, n_contigs]).tolist()

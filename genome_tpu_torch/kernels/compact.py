@@ -45,6 +45,9 @@ SITES = {
     # the sharded simplify (dist/simplify.py::_compact's two callers)
     "dist_kills": "dist/simplify.py:428",
     "dist_bubble_cands": "dist/simplify.py:601",
+    # the sharded emission (dist/emit.py::_compact_scatter's two callers)
+    "dist_emit_blocks": "dist/emit.py:103",
+    "dist_emit_heads": "dist/emit.py:126",
 }
 
 # wrapper calls that launched the kernel, per call-site label (CUDA path

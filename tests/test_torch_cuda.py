@@ -112,6 +112,30 @@ def test_compact_at_the_sharded_simplify_sites(cuda_device, site, n, p,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("site,n,p,types,cap", [
+    # dist_emit_blocks: the owner's sorted records, a flag at each block's
+    # first (a block holds up to 1024 records), with its (head, block);
+    # n = S * ecap, capacity block_cap (legacy at P = 1: 11,324,685 and
+    # 15,155)
+    ("dist_emit_blocks", 11_324_685, 1 / 1024, "ii", 15_155),
+    ("dist_emit_blocks", 1 << 16, 0.01, "ii", 4160),
+    ("dist_emit_blocks", 1 << 16, 0.01, "ii", 8),
+    # dist_emit_heads: the routed head records (id, k-mer's two words);
+    # n = S * hcap_send, capacity head_cap
+    ("dist_emit_heads", 2_831_171, 0.001, "iii", 15_155),
+    ("dist_emit_heads", 1 << 14, 0.05, "iii", 4160),
+    ("dist_emit_heads", 1 << 14, 0.05, "iii", 8)])
+def test_compact_at_the_sharded_emission_sites(cuda_device, site, n, p,
+                                               types, cap):
+    flags, arrays = _compact_case(cuda_device, n, p, types, 0, n + cap)
+    compact.reset_launches()
+    got = compact.compact_flagged(flags, arrays, cap, site=site)
+    _assert_compact_equal(flags, arrays, cap, got)
+    assert bool(got[3]) == (int(flags.sum()) > cap)
+    assert compact.LAUNCHES[site] == 1
+
+
+@pytest.mark.cuda
 def test_compact_back_to_back_and_on_a_side_stream(cuda_device):
     """Three calls of different n back to back on one stream, then one on
     a side stream whose input is made there just before the call: every

@@ -61,7 +61,8 @@ SHARDS = (1, 2, 4)
 PHASES = ("dist_extract", "dist_count", "dist_build", "dist_simplify",
           "dist_contigs")  # sharded_simplify=False
 SHARDED_PHASES = ("dist_extract", "dist_count", "dist_build",
-                  "dist_simplify_sharded", "dist_simplify", "dist_contigs")
+                  "dist_simplify_sharded", "dist_final_sharded",
+                  "dist_contigs")
 SIMPLIFY_PROGRAMS = ("dist_degrees", "dist_tips", "dist_bubbles")
 OPS_SEED = 11
 
@@ -284,8 +285,7 @@ def runs():
                       {"graphs": {name: (_rank_graphs(g, S),
                                          _port_params(p))
                                   for name, (g, p) in graphs[S].items()},
-                       "ops_seed": OPS_SEED if S > 1 else None,
-                       "uncapped": S == 1}))
+                       "ops_seed": OPS_SEED if S > 1 else None}))
         jax_simplify = {(S, name): _jax_simplify(S, g, p)
                         for S in (2, 4) for name, (g, p) in graphs[S].items()}
         jax_asm = {}
@@ -633,15 +633,17 @@ def test_sharded_simplify_ladder_exhausted_falls_back(runs):
 def test_dist_simplify_alive_counts_valid_nodes(runs, S):
     """The dist_simplify phase's `alive` counts alive & valid, on purpose:
     JAX's counts every slot of the gathered graph, the holes at each
-    shard's tail included, so it is larger by exactly the holes."""
+    shard's tail included, so it is larger by exactly the holes. The
+    default sharded path has no dist_simplify phase: its final state
+    and emission stay sharded."""
     g = runs["graphs"][S]["case"][0]
     valid = _valid(g[4])
     want = int((runs["jax_simplify"][S, "case"]["alive"] & valid).sum())
     jax_alive = _phase_ends(runs["jax_asm"][S][2])["dist_simplify"]["alive"]
     assert jax_alive == want + int((~valid).sum())
-    for name in ("case", "case_replicated"):
-        got = _phase_ends(_assembled(runs, S, name)[1])["dist_simplify"]
-        assert got["alive"] == want < jax_alive
+    got = _phase_ends(_assembled(runs, S, "case_replicated")[1])
+    assert got["dist_simplify"]["alive"] == want < jax_alive
+    assert "dist_simplify" not in _phase_ends(_assembled(runs, S, "case")[1])
 
 
 def _ops_cases(S):
@@ -720,13 +722,6 @@ def test_ledger_counts_a_call_at_the_same_key_as_an_invocation():
 
 
 # ---- refusals: no fallback hides the device, backend or path ----
-
-def test_chain_state_uncapped_raises(runs):
-    """chain_state with max_len=None (the sharded final state's) is not
-    ported yet: it raises, naming the slice that brings it."""
-    msgs = [r["uncapped"] for r in runs["port"][1]]
-    assert msgs[0] and "max_len=None" in msgs[0] and "item 2" in msgs[0]
-
 
 def test_cuda_device_raises_without_card():
     if torch.cuda.is_available():

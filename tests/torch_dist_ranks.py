@@ -1,6 +1,10 @@
-"""Per-rank bodies for tests/test_torch_dist.py, run by
-genome_tpu_torch.dist.run_local in spawned processes. This module imports
+"""Per-rank bodies for tests/test_torch_dist.py and
+tests/test_torch_dist_final.py, run by genome_tpu_torch.dist.run_local in
+spawned processes. This module imports
 only the port (no JAX), so a rank starts quickly and never touches JAX."""
+
+import contextlib
+import importlib
 
 import numpy as np
 import torch
@@ -9,6 +13,7 @@ import torch.distributed as dist
 from genome_tpu_torch.assemble.metrics import Metrics
 from genome_tpu_torch.assemble.pipeline import extract_stream
 from genome_tpu_torch.dist import assemble_sharded, shard_reads
+from genome_tpu_torch.dist import emit as demit
 from genome_tpu_torch.dist import simplify as dsimplify
 from genome_tpu_torch.dist.build import sharded_build
 from genome_tpu_torch.dist.count import sharded_count
@@ -77,20 +82,6 @@ def _ops(seed):
                 routed=[x.numpy() for x in routed], seg_ovf=bool(sovf))
 
 
-def _uncapped_refusal():
-    """The message of chain_state's refusal of max_len=None."""
-    tips, _, degrees = dsimplify.make_sharded_simplify(None, 64)
-    succ = torch.full((128, 4), -1, dtype=torch.int32)
-    alive = torch.ones(64, dtype=torch.bool)
-    deg, _ = degrees(succ, alive, 0)
-    try:
-        tips(succ, torch.zeros(128, dtype=torch.int64),
-             torch.zeros(64, dtype=torch.int32), alive, 0, 10, deg)
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
 def _sharded_simplify(graph, params):
     """simplify_sharded on this rank's part of a graph (succ, okv, counts,
     n_unique), with a fresh ledger."""
@@ -112,8 +103,7 @@ def parity(reads, k, min_cov, pad_to, bucket_caps, local_cap, query_caps,
     kwarg `overrides` sets dist/simplify.py module names for the job).
     `simplify`: {"graphs": {name: (one (succ, okv, counts, n_unique) a
     rank, params)}} for simplify_sharded, "ops_seed" (or None) for the
-    remote_gather / seg_route checks, "uncapped" for the max_len=None
-    refusal."""
+    remote_gather / seg_route checks."""
     S, rank = dist.get_world_size(), dist.get_rank()
     stream = extract_stream(shard_reads(reads, S)[rank], k, "cpu")
     stream = torch.cat([stream, stream.new_full(
@@ -156,8 +146,6 @@ def parity(reads, k, min_cov, pad_to, bucket_caps, local_cap, query_caps,
                        for name, (g, params) in simplify["graphs"].items()}
     if simplify.get("ops_seed") is not None:
         out["ops"] = _ops(simplify["ops_seed"])
-    if simplify.get("uncapped"):
-        out["uncapped"] = _uncapped_refusal()
     return out
 
 
@@ -171,3 +159,102 @@ def fail_on_rank_1():
 def sleep(seconds):
     import time
     time.sleep(seconds)
+
+
+# ---- the sharded final state and emission (tests/test_torch_dist_final.py)
+
+_FINAL_FAST = dsimplify.make_sharded_final_fast
+
+
+def starved_final_fast(group, local_capacity, slack=1.35, ledger=None):
+    """make_sharded_final_fast override: slack / 1000 on its ladder's
+    first rung (64-slot route buckets, _cap_for's floor: they overflow),
+    JAX's slack after it."""
+    return _FINAL_FAST(group, local_capacity,
+                       slack / 1000 if slack < 1.4 else slack, ledger)
+
+
+def tiny_emit_caps(cl2, S):
+    """_emit_caps override: 8 slots for every emission buffer, too few
+    on every try of the ladder."""
+    return 8, 8, 8
+
+
+def replicated_unreachable(*args, **kwargs):
+    raise AssertionError("the replicated final state or emission ran")
+
+
+@contextlib.contextmanager
+def _overridden(overrides):
+    """Set module attributes {"module:name": value}; restore them after."""
+    saved = []
+    try:
+        for key, value in overrides.items():
+            mod, name = key.split(":")
+            m = importlib.import_module(mod)
+            saved.append((m, name, getattr(m, name)))
+            setattr(m, name, value)
+        yield
+    finally:
+        for m, name, value in reversed(saved):
+            setattr(m, name, value)
+
+
+def _final_case(part, k):
+    """The fast and exact final state, the emission program and the
+    emission (whole and in local slices) on this rank's part (succ, okv,
+    counts, n_unique, alive) of one graph."""
+    S = dist.get_world_size()
+    succ, okv, counts, n_unique, alive = part
+    succ, okv, counts, alive = (torch.from_numpy(x)
+                                for x in (succ, okv, counts, alive))
+    cl = counts.shape[0]
+    ledger = ExchangeLedger()
+    fast = dsimplify.make_sharded_final_fast(None, cl, ledger=ledger)
+    *f, rnds = fast(succ, okv, counts, alive, n_unique)
+    ledger.invoke("dist_final_fast")
+    e = dsimplify.make_sharded_final(None, cl, ledger=ledger)(
+        succ, okv, counts, alive, n_unique)
+    ledger.invoke("dist_final_exact")
+    caps = demit._emit_caps(2 * cl, S)
+    em = demit.make_sharded_emit(None, cl, *caps, ledger)(*e[:4], okv)
+    ledger.invoke("dist_emit")
+    contigs, ok = demit.emit_contigs_sharded(*e[:4], okv, k)
+    n = len(contigs)
+    slices = {P: [demit.emit_contigs_sharded(
+        *e[:4], okv, k, local_slice=(pid, P)) for pid in range(P)]
+        for P in sorted({1, 2, 3, n, n + 2})}
+    return dict(fast=[x.numpy() for x in f], rounds=rnds,
+                exact=[x.numpy() for x in e], emit=[x.numpy() for x in em],
+                emit_caps=caps, contigs=contigs, ok=ok, slices=slices,
+                ledger=ledger.summary())
+
+
+def final_parity(graphs, k, jobs, fasta_dir):
+    """This rank's part of the final-state and emission checks: for each
+    graph {name: one (succ, okv, counts, n_unique, alive) a rank}
+    _final_case; assemble_sharded on each job (name, reads, params,
+    overrides {"module:name": value}) with its contigs and events; and
+    write_fasta_parallel into fasta_dir (one rank: the golden oracle's
+    list as given, plain and .gz; two ranks: each rank's local slice of
+    the graph "frag"'s emission)."""
+    S, rank = dist.get_world_size(), dist.get_rank()
+    out = {"graphs": {name: _final_case(parts[rank], k)
+                      for name, parts in graphs.items()},
+           "assemble": {}}
+    for name, job_reads, params, overrides in jobs:
+        metrics = Metrics(quiet=True)
+        with _overridden(overrides):
+            contigs = assemble_sharded(job_reads, params, metrics=metrics,
+                                       device="cpu")
+        out["assemble"][name] = dict(contigs=contigs, events=metrics.events)
+    if S == 1:
+        contigs = out["assemble"]["errors"]["contigs"]
+        out["fasta"] = [demit.write_fasta_parallel(
+            f"{fasta_dir}/one{ext}", contigs) for ext in (".fasta",
+                                                          ".fasta.gz")]
+    elif S == 2:
+        mine = out["graphs"]["frag"]["slices"][2][rank][0]
+        out["fasta"] = [demit.write_fasta_parallel(f"{fasta_dir}/two.fasta",
+                                                   mine)]
+    return out
