@@ -87,7 +87,20 @@ Phases (any failure exits non-zero and prints no result line):
      and the emission, each alone; last `[dist sharded circular]`, the
      final state's ladder: a 200,000 bp circular genome (100 bp
      error-free reads, 30x, k = 21) whose fast final falls back to the
-     exact one, its one contig equal to assemble_device's.
+     exact one, its one contig equal to assemble_device's;
+  5. the multi-process entry (dist/multihost.py, dist/launch.py) at
+     P = 1 (`[dist multihost …]`): assemble_multihost on a NCCL group of
+     one rank joined by initialize, on the legacy code matrix (a warm-up
+     that holds compact_flagged against its plain version at its six
+     sites' inputs, a timed run: golden SHA, JAX's phase_times keys, a
+     launch at every site, the phase walls beside `[dist sharded
+     legacy]`'s e2e, peak bytes; a run with out_path: the FASTA's SHA, no
+     shard file left); then `python -m genome_tpu_torch.dist.launch` on
+     the legacy reads as FASTQ with --bench over a tcp rendezvous on
+     127.0.0.1 (golden SHA, the bench record); then a crash after
+     dist_build (GENOME_TPU_CRASH_AFTER, rc 7) and a --resume launch on a
+     500,000 bp genome (100 bp reads, 0.5 % errors, 30x): the count and
+     build shards reused, the contigs equal to run_pipeline's.
 Every profiled block runs under _profiled, which keeps it away from the
 ends of its profiler session and fails when the trace lacks a device
 record of a launch, copy or memset.
@@ -422,6 +435,15 @@ def phase_upload(w, k) -> dict:
     return res
 
 
+def _write_fastq(path, reads) -> None:
+    """Reads (strings) as FASTQ records @r<i>, written 2^16 at a time."""
+    step = 1 << 16
+    with open(path, "w") as f:
+        for i in range(0, len(reads), step):
+            f.write("".join(f"@r{j}\n{r}\n+\n{'I' * len(r)}\n"
+                            for j, r in enumerate(reads[i : i + step], i)))
+
+
 def phase_native_ingest(w, params, golden) -> dict:
     """The CLI as a user runs it on a FASTQ: the legacy workload's real
     reads written as FASTQ, then cli.main with --io native on the card
@@ -441,13 +463,7 @@ def phase_native_ingest(w, params, golden) -> dict:
     with tempfile.TemporaryDirectory() as td:
         fq = os.path.join(td, "reads.fastq")
         t0 = time.perf_counter()
-        reads = codes_to_reads(w["err"], n)
-        step = 1 << 16
-        with open(fq, "w") as f:
-            for i in range(0, n, step):
-                f.write("".join(f"@r{j}\n{r}\n+\n{'I' * len(r)}\n"
-                                for j, r in enumerate(reads[i : i + step], i)))
-        del reads
+        _write_fastq(fq, codes_to_reads(w["err"], n))
         print(f"[native ingest] wrote {n} reads as FASTQ "
               f"({os.path.getsize(fq)} B) in {time.perf_counter() - t0:.2f} s",
               flush=True)
@@ -1512,6 +1528,221 @@ def phase_dist(legacy, repeats, params, golden, smi: str) -> dict:
                 circular=circular)
 
 
+# assemble_multihost's phase_times keys (JAX's, genome_tpu/dist/
+# multihost.py:135-290); "write" with out_path
+MULTIHOST_KEYS = ("build", "count", "emit", "exchange_ledger", "extract",
+                  "final", "simplify")
+BENCH_KEYS = ("metric", "process_id", "num_processes", "local_reads",
+              "wall_s", "ingest_s", "reads_per_sec_local",
+              "reads_per_sec_total", "phases_s", "n_contigs",
+              "exchange_ledger")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch(fq, out, extra=(), env_extra=None) -> subprocess.CompletedProcess:
+    """python -m genome_tpu_torch.dist.launch as a user runs it: one
+    process, rank 0 of 1, on cuda:0, a tcp rendezvous on 127.0.0.1 (a
+    free port), k = 21, min_coverage 2, --forbid-replicated. Killed if
+    it outlives 300 s."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **(env_extra or {}))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + [x for x in env.get("PYTHONPATH", "").split(os.pathsep) if x])
+    return subprocess.run(
+        [sys.executable, "-m", "genome_tpu_torch.dist.launch", fq, "-o", out,
+         "--coordinator", f"127.0.0.1:{_free_port()}", "--num-processes",
+         "1", "--process-id", "0", "--k", "21", "--min-coverage", "2",
+         "--forbid-replicated", *extra],
+        cwd=here, env=env, capture_output=True, text=True, timeout=300)
+
+
+def _launched(label, p, rc=0) -> None:
+    if p.returncode != rc:
+        raise AssertionError(f"{label}: the launcher gave rc {p.returncode}"
+                             f" (want {rc}): {p.stderr[-3000:]}")
+
+
+def _multihost_resume(smi: str) -> dict:
+    """Crash and resume through the launcher: a 500,000 bp linear genome,
+    100 bp reads with 0.5 % errors at 30x, k = 21. The first launch
+    exits after saving its build shard (GENOME_TPU_CRASH_AFTER=
+    dist_build:0, rc 7); the second, with --resume, loads the count and
+    the build (their files keep their mtimes), saves the simplify shard,
+    and writes run_pipeline's contigs."""
+    from genome_tpu_torch.assemble.pipeline import run_pipeline
+    from genome_tpu_torch.io import read_fastx
+    from genome_tpu_torch.io.simulate import random_genome, simulate_reads
+    from genome_tpu_torch.params import AssemblyParams
+
+    label = "dist multihost resume"
+    reads = simulate_reads(random_genome(500_000, seed=93), read_len=100,
+                           coverage=30, error_rate=0.005, seed=94)
+    with tempfile.TemporaryDirectory() as td:
+        fq, out = os.path.join(td, "reads.fastq"), os.path.join(td, "c.fasta")
+        ck = os.path.join(td, "ckpt")
+        _write_fastq(fq, reads)
+        t0 = time.perf_counter()
+        p = _launch(fq, out, ("--checkpoint-dir", ck),
+                    {"GENOME_TPU_CRASH_AFTER": "dist_build:0"})
+        crash_s = time.perf_counter() - t0
+        _launched(label, p, rc=7)
+        if "injected crash after dist_build" not in p.stderr:
+            raise AssertionError(f"{label}: no injected crash on stderr")
+        saved = {f: os.stat(os.path.join(ck, f)).st_mtime_ns
+                 for f in ("dist_count.shard0.npz", "dist_build.shard0.npz")}
+        sizes = {f: os.path.getsize(os.path.join(ck, f)) for f in saved}
+        t0 = time.perf_counter()
+        p = _launch(fq, out, ("--checkpoint-dir", ck, "--resume"))
+        resume_s = time.perf_counter() - t0
+        _launched(label, p)
+        got = read_fastx(out)
+        kept = {f: os.stat(os.path.join(ck, f)).st_mtime_ns for f in saved}
+        simplified = os.path.exists(os.path.join(ck,
+                                                 "dist_simplify.shard0.npz"))
+    want = run_pipeline(reads, AssemblyParams(k=21, min_coverage=2),
+                        device="cuda")["contigs"]
+    print(f"[{label}] {len(reads)} reads: crash launch rc 7 in "
+          f"{crash_s:.2f} s (shards {json.dumps(sizes)} bytes), resume "
+          f"launch rc 0 in {resume_s:.2f} s; count/build shards untouched "
+          f"{kept == saved}; dist_simplify.shard0.npz saved {simplified}; "
+          f"{len(got)} contigs == run_pipeline's {got == want} | {smi}",
+          flush=True)
+    if kept != saved or not simplified or got != want:
+        raise AssertionError(f"{label}: the resume did not reuse the count "
+                             "and build shards, or its contigs differ from "
+                             "run_pipeline's")
+    return dict(reads=len(reads), crash_s=crash_s, resume_s=resume_s,
+                shard_bytes=sizes, contigs=len(got))
+
+
+def phase_multihost(w, params, golden, smi: str, sharded_wall: float,
+                    cli_read_s: float) -> dict:
+    """The multi-process entry (dist/multihost.py, dist/launch.py) at
+    P = 1 on cuda:0. In process, on a NCCL group of one rank joined by
+    initialize: assemble_multihost on the legacy code matrix, a warm-up
+    that keeps compact_flagged's inputs at its six sites (each held
+    against the plain version and timed), a timed run with the launch
+    counters set to 0 just before it (golden SHA, JAX's phase_times
+    keys, a launch at every site, peak bytes), then a run with out_path
+    (the FASTA's SHA, no shard left). Then the launcher on the legacy
+    reads as FASTQ with --bench (golden SHA, the bench record), and the
+    crash and resume through the launcher (_multihost_resume)."""
+    import glob
+
+    import torch
+    import torch.distributed as dist
+    from genome_tpu_torch.dist.multihost import assemble_multihost, initialize
+    from genome_tpu_torch.io import read_fastx
+    from genome_tpu_torch.io.benchdata import (codes_to_reads, contigs_sha,
+                                               workload_key)
+    from genome_tpu_torch.kernels import compact
+
+    label = "dist multihost"
+    want = golden[workload_key(w, params.params_hash())]
+    res = {}
+    with tempfile.TemporaryDirectory() as td:
+        initialize(f"file://{td}/rendezvous", 1, 0, device="cuda")
+        try:
+            with _capture_compact() as inputs:  # warm-up
+                assemble_multihost(w["err"], params, forbid_replicated=True)
+            missing = [s for s in DIST_SHARDED_SITES if s not in inputs]
+            if missing:
+                raise AssertionError(f"{label}: no compact_flagged call at "
+                                     f"{missing}")
+            shapes = [_shape_row(f"{label} kernels", site, *inputs.pop(site))
+                      for site in DIST_SHARDED_SITES]
+            del inputs
+            pt = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            compact.reset_launches()
+            t0 = time.perf_counter()
+            contigs = assemble_multihost(w["err"], params,
+                                         forbid_replicated=True,
+                                         phase_times=pt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(compact.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            sha = contigs_sha(contigs)
+            keys = tuple(sorted(pt))
+            ledger = pt.pop("exchange_ledger")
+            print(f"[{label}] P=1 NCCL assemble_multihost wall={wall:.4f} s "
+                  + " ".join(f"{k}={v:.4f}s" for k, v in pt.items())
+                  + f" (dist sharded legacy e2e {sharded_wall:.4f} s in this"
+                  f" call) peak_mem_bytes={peak} contigs={len(contigs)} "
+                  f"final_fast_rounds={ledger['final_fast_rounds']} | {smi}",
+                  flush=True)
+            print(f"[{label}] ledger={json.dumps(ledger)}", flush=True)
+            print(f"[{label}] launches="
+                  f"{json.dumps(launches, sort_keys=True)}", flush=True)
+            print(f"[{label}] sha={sha} golden={want}", flush=True)
+            if sha != want:
+                raise AssertionError(f"{label}: contig SHA {sha} != golden")
+            if keys != MULTIHOST_KEYS:
+                raise AssertionError(f"{label}: phase_times keys {keys}")
+            missing = [s for s in DIST_SHARDED_SITES if not launches.get(s)]
+            if missing:
+                raise AssertionError(f"{label}: no kernel launch at "
+                                     f"{missing}")
+            out = os.path.join(td, "contigs.fasta")
+            pt_w = {}
+            t0 = time.perf_counter()
+            n = assemble_multihost(w["err"], params, forbid_replicated=True,
+                                   phase_times=pt_w, out_path=out)
+            wall_w = time.perf_counter() - t0
+            sha_w = contigs_sha(read_fastx(out))
+            left = glob.glob(out + ".shard*")
+            print(f"[{label}] out_path: wall={wall_w:.4f} s write="
+                  f"{pt_w['write']:.4f} s, {n} contigs, sha={sha_w}, shard "
+                  f"files left {left}", flush=True)
+            if sha_w != want or n != len(contigs) or left:
+                raise AssertionError(f"{label}: out_path gave {n} contigs, "
+                                     f"SHA {sha_w}, shards left {left}")
+        finally:
+            dist.destroy_process_group()
+        del contigs
+        torch.cuda.empty_cache()
+        res.update(wall_s=wall, phases=pt, peak_mem_bytes=peak,
+                   launches=launches, ledger=ledger, sha=sha,
+                   out_path_wall_s=wall_w, compact_shapes=shapes)
+
+        # the launcher, as a user runs it
+        fq, out = os.path.join(td, "reads.fastq"), os.path.join(td, "l.fasta")
+        _write_fastq(fq, codes_to_reads(w["err"], w["num_reads"]))
+        bench = os.path.join(td, "bench.jsonl")
+        t0 = time.perf_counter()
+        p = _launch(fq, out, ("--bench", "--bench-out", bench))
+        launch_s = time.perf_counter() - t0
+        _launched(f"{label} launch", p)
+        sha_l = contigs_sha(read_fastx(out))
+        with open(bench) as f:
+            rec = json.loads(f.read())
+        print(f"[{label} launch] P=1 rc 0 in {launch_s:.2f} s (process, "
+              f"two assemblies, write); bench wall_s={rec['wall_s']} "
+              f"ingest_s={rec['ingest_s']} (the CLI's read_input "
+              f"{cli_read_s} s in this call) reads_per_sec_total="
+              f"{rec['reads_per_sec_total']} phases_s="
+              f"{json.dumps(rec['phases_s'])} n_contigs={rec['n_contigs']} "
+              f"sha={sha_l} | {smi}", flush=True)
+        print(f"[{label} launch] ledger="
+              f"{json.dumps(rec['exchange_ledger'])}", flush=True)
+        print(f"[{label} launch] stderr: {p.stderr.strip()[-300:]}",
+              flush=True)
+        if sha_l != want or tuple(rec) != BENCH_KEYS:
+            raise AssertionError(f"{label} launch: SHA {sha_l}, bench keys "
+                                 f"{tuple(rec)}")
+        res["launch"] = dict(rec, process_s=launch_s)
+    res["resume"] = _multihost_resume(smi)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1598,6 +1829,10 @@ def main() -> int:
 
     # ---- phase 4: the hash-sharded path, one rank ----
     dist_res = phase_dist(legacy, repeats, params, golden, smi)
+    # ---- phase 5: the multi-process entry, one rank ----
+    mh = phase_multihost(legacy, params, golden, smi,
+                         dist_res["e2e"]["sharded legacy"]["wall_s"],
+                         native["timed"]["read_input_s"])
     del legacy, repeats
     launches = {s: sum(r["launches"].get(s, 0) for r in e2e.values())
                 for s in compact.SITES}
@@ -1652,7 +1887,8 @@ def main() -> int:
         "host_us_per_call": {"compact_ids": ids["host_us"]},
         "device_split": {r["site"]: r["split"] for r in rows
                          if "split" in r},
-        "max_abs_err": max(r["max_abs_err"] for r in rows + dist_rows),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in rows + dist_rows + mh["compact_shapes"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "matched_plain": True,
@@ -1663,12 +1899,16 @@ def main() -> int:
                        for s in compact.SITES},
         # held against the plain version on the dist path's own inputs
         "dist_shapes": {w: r["compact_shapes"]
-                        for w, r in dist_res["e2e"].items()}},
+                        for w, r in dist_res["e2e"].items()},
+        # assemble_multihost's timed run (legacy), and its sites' inputs
+        "multihost_sites": mh["launches"],
+        "multihost_shapes": mh["compact_shapes"]},
         bitonic_entry("sort_blocks", 86), bitonic_entry("merge_blocks", 143),
         hp_entry("digit_histogram", "hist", "pallas_hist.py:74"),
         hp_entry("partition_by_bucket", "partition", "partition.py:193")],
         "sort_pairs_merge": brows["sort_pairs_merge"],
         "upload": upload, "native_ingest": native, "dist": dist_res,
+        "multihost": {k: v for k, v in mh.items() if k != "compact_shapes"},
         "bitonic_split": brows["split"],
         "count_stream_skew": hp["skew"]}
     print(smi)

@@ -15,8 +15,10 @@ local launcher run_local), ledger, count, build, the sharded simplify
 passes and their host loop, the sharded final state (the exact one and
 the ruler-ranking fast one, with final_state_sharded's ladder), the
 sharded emission (emit_contigs_sharded, and write_fasta_parallel for
-per-rank slices), and assemble_sharded, sharded end to end by default.
-multihost and launch are the next slice (ROADMAP.md).
+per-rank slices), assemble_sharded, sharded end to end by default, and
+the multi-process entry: multihost (initialize, assemble_multihost: each
+rank passes its own reads, with per-rank checkpoints and resume) and
+launch (python -m genome_tpu_torch.dist.launch, one process a rank).
 """
 
 from genome_tpu_torch.dist.assemble import assemble_sharded, shard_reads
@@ -24,6 +26,7 @@ from genome_tpu_torch.dist.emit import (emit_contigs_sharded,
                                         make_sharded_emit,
                                         write_fasta_parallel)
 from genome_tpu_torch.dist.mesh import run_local
+from genome_tpu_torch.dist.multihost import assemble_multihost, initialize
 from genome_tpu_torch.dist.partition import owner_of_np
 from genome_tpu_torch.dist.simplify import (final_state_sharded,
                                             make_sharded_final,
@@ -31,8 +34,8 @@ from genome_tpu_torch.dist.simplify import (final_state_sharded,
                                             make_sharded_simplify,
                                             simplify_sharded)
 
-__all__ = ["assemble_sharded", "emit_contigs_sharded", "final_state_sharded",
-           "make_sharded_emit", "make_sharded_final",
-           "make_sharded_final_fast", "make_sharded_simplify", "owner_of_np",
-           "run_local", "shard_reads", "simplify_sharded",
-           "write_fasta_parallel"]
+__all__ = ["assemble_multihost", "assemble_sharded", "emit_contigs_sharded",
+           "final_state_sharded", "initialize", "make_sharded_emit",
+           "make_sharded_final", "make_sharded_final_fast",
+           "make_sharded_simplify", "owner_of_np", "run_local", "shard_reads",
+           "simplify_sharded", "write_fasta_parallel"]

@@ -49,6 +49,50 @@ def shard_reads(reads, num_shards: int) -> list:
     return [reads[i * per : (i + 1) * per] for i in range(num_shards)]
 
 
+def count_with_retry(stream: torch.Tensor, min_coverage: int,
+                     local_capacity: int | None, group,
+                     ledger: ExchangeLedger, metrics: Metrics):
+    """The sharded count of this rank's window stream (padded to the
+    agreed length), retried with both caps doubled while any rank
+    overflows, then shrink_tables. Returns (table, counts, n_unique (a
+    host int), local_cap)."""
+    S = dist.get_world_size(group)
+    m_local = stream.numel()
+    bucket_cap = max(64, int(1.3 * m_local / S) + 64)
+    local_cap = local_capacity or _pow2_at_least(max(64, m_local))
+    while True:
+        res = sharded_count(stream, min_coverage, bucket_cap, local_cap,
+                            group, ledger)
+        ledger.invoke("dist_count")
+        if not res["overflow"]:
+            break
+        bucket_cap *= 2
+        local_cap *= 2
+        metrics.log("dist_capacity_overflow", bucket_cap=bucket_cap,
+                    local_cap=local_cap)
+    n_unique = int(res["n_unique"])
+    table, counts, local_cap = shrink_tables(local_cap, res["table"],
+                                             res["counts"], n_unique, group)
+    return table, counts, n_unique, local_cap
+
+
+def build_with_retry(table: torch.Tensor, n_unique: int, k: int,
+                     local_cap: int, group, ledger: ExchangeLedger,
+                     metrics: Metrics):
+    """The sharded build, retried with the query cap doubled while any
+    rank overflows. Returns (succ, okv, query_cap)."""
+    S = dist.get_world_size(group)
+    query_cap = max(64, int(1.3 * 8 * local_cap / S) + 64)
+    while True:
+        succ, okv, ovf = sharded_build(table, n_unique, k, local_cap,
+                                       query_cap, group, ledger)
+        ledger.invoke("dist_build")
+        if not ovf:
+            return succ, okv, query_cap
+        query_cap *= 2
+        metrics.log("dist_query_overflow", query_cap=query_cap)
+
+
 def assemble_sharded(reads, params: AssemblyParams | None = None,
                      num_shards: int | None = None, group=None,
                      metrics: Metrics | None = None,
@@ -88,41 +132,20 @@ def assemble_sharded(reads, params: AssemblyParams | None = None,
         info["windows"] = S * m_local
 
     # sharded count (all_to_all #1), capacity retry on overflow
-    bucket_cap = max(64, int(1.3 * m_local / S) + 64)
-    local_cap = local_capacity or _pow2_at_least(max(64, m_local))
     with metrics.phase("dist_count") as info:
-        while True:
-            res = sharded_count(stream, params.min_coverage, bucket_cap,
-                                local_cap, group, ledger)
-            ledger.invoke("dist_count")
-            if not res["overflow"]:
-                break
-            bucket_cap *= 2
-            local_cap *= 2
-            metrics.log("dist_capacity_overflow", bucket_cap=bucket_cap,
-                        local_cap=local_cap)
+        table, counts, n_unique, local_cap = count_with_retry(
+            stream, params.min_coverage, local_capacity, group, ledger,
+            metrics)
         del stream
-        n_all = all_gather_rows(res["n_unique"].reshape(1), group)
-        n_unique = int(n_all[rank])
+        n_all = all_gather_rows(
+            torch.tensor([n_unique], dtype=torch.int64, device=dev), group)
         info["n_unique_total"] = int(n_all.sum())
-        table, counts, local_cap = shrink_tables(
-            local_cap, res["table"], res["counts"], n_unique, group)
-        del res
         info["local_cap"] = local_cap
 
     # sharded build (all_to_all #2/#3: boundary probes and replies)
-    query_cap = max(64, int(1.3 * 8 * local_cap / S) + 64)
     with metrics.phase("dist_build") as info:
-        while True:
-            succ, okv, ovf = sharded_build(table, n_unique, params.k,
-                                           local_cap, query_cap, group,
-                                           ledger)
-            ledger.invoke("dist_build")
-            if not ovf:
-                break
-            query_cap *= 2
-            metrics.log("dist_query_overflow", query_cap=query_cap)
-        info["query_cap"] = query_cap
+        succ, okv, info["query_cap"] = build_with_retry(
+            table, n_unique, params.k, local_cap, group, ledger, metrics)
 
     # sharded simplify: the passes retry up the slack ladder on a route
     # overflow; only a used-up ladder falls back to the replicated passes
