@@ -9,6 +9,11 @@ this package never imports):
             (compact.cu) is one decoupled look-back pass a call
   graph/    de Bruijn graph build, simplification, contig emission
   assemble/ pipeline, CLI, checkpointing, metrics
+  dist/     the hash-sharded path over torch.distributed (one process a
+            rank): count, build, simplify, final state, emission, the
+            multi-process entry
+  golden/   the NumPy and pure-Python oracles (host; no torch), the
+            contigs every other path must reproduce
 
 One int64 per k-mer (k odd, <= 31, so keys are below 2^62) replaces the
 JAX package's (hi, lo) uint32 pair; INT64_MAX is the invalid-window

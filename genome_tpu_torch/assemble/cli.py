@@ -1,14 +1,16 @@
 """Command-line entry point (port of genome_tpu/assemble/cli.py).
 
     python -m genome_tpu_torch.assemble.cli reads.fastq [more.fastq ...] \
-        -o contigs.fasta --k 21 --min-coverage 2 [--device cuda|cpu] \
-        [--io native|python] [--checkpoint-dir ck/ --resume] \
-        [--metrics run.jsonl] [--profile dir/]
+        -o contigs.fasta --k 21 --min-coverage 2 [--backend device|golden] \
+        [--device cuda|cpu] [--io native|python] \
+        [--checkpoint-dir ck/ --resume] [--metrics run.jsonl] \
+        [--profile dir/]
 
-Same flags as the JAX CLI, with --counter sort|bucket|hashtable and
---io native (default: the C++ parser into a code matrix, which is
-uploaded packed) or python (read strings), except that there is no
-golden backend (the JAX package keeps it).
+Same flags as the JAX CLI, with --counter sort|bucket|hashtable, --io
+native (default: the C++ parser into a code matrix, which is uploaded
+packed) or python (read strings), and --backend golden (the NumPy oracle
+on the host, which always reads with the Python parser and needs no
+card).
 """
 
 from __future__ import annotations
@@ -58,10 +60,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default), bucket-partition sort, or batched "
                         "open-addressing hash table (a parity oracle, far "
                         "slower than sort on large inputs)")
+    p.add_argument("--backend", choices=["device", "golden"], default="device",
+                   help="device = PyTorch/CUDA pipeline, golden = NumPy "
+                        "reference")
     p.add_argument("--io", choices=["native", "python"], default="native",
                    help="input parser: native C++ (default; built with g++ "
                         "at first use, raises if it cannot be) or pure "
-                        "Python")
+                        "Python (golden backend always uses python)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     p.add_argument("--checkpoint-dir", default=None,
@@ -109,7 +114,7 @@ def main(argv: list[str] | None = None) -> int:
     metrics = Metrics(path=args.metrics, quiet=args.quiet)
     t0 = time.perf_counter()
     try:
-        if args.io == "native":
+        if args.io == "native" and args.backend == "device":
             reads = _read_codes(args.reads)
             n_reads, total_bp = len(reads), int(np.count_nonzero(reads < 4))
         else:
@@ -128,23 +133,29 @@ def main(argv: list[str] | None = None) -> int:
               "slower than --counter sort on an input this large",
               file=sys.stderr)
 
-    from genome_tpu_torch.assemble.pipeline import run_pipeline
-    # without --resume, checkpoints are written but never read back; the
-    # manifest pins the device count and an input digest so a resume
-    # against other reads or another topology is rejected
-    ndev = digest = None
-    if args.checkpoint_dir:
-        ndev = device_count(args.device)
-        digest = input_digest(reads)
-    ckpt = PhaseCheckpointer(args.checkpoint_dir, params,
-                             load_enabled=args.resume,
-                             n_devices=ndev, input_digest=digest)
-    result = run_pipeline(reads, params, capacity=args.capacity,
-                          metrics=metrics, ckpt=ckpt,
-                          profile_dir=args.profile,
-                          max_device_kmers=args.max_device_kmers,
-                          counter=args.counter, device=args.device)
-    contigs = result["contigs"]
+    if args.backend == "golden":
+        from genome_tpu_torch.golden import assemble_golden
+        with metrics.phase("assemble_golden") as info:
+            contigs = assemble_golden(reads, params)
+            info["n_contigs"] = len(contigs)
+    else:
+        from genome_tpu_torch.assemble.pipeline import run_pipeline
+        # without --resume, checkpoints are written but never read back;
+        # the manifest pins the device count and an input digest so a
+        # resume against other reads or another topology is rejected
+        ndev = digest = None
+        if args.checkpoint_dir:
+            ndev = device_count(args.device)
+            digest = input_digest(reads)
+        ckpt = PhaseCheckpointer(args.checkpoint_dir, params,
+                                 load_enabled=args.resume,
+                                 n_devices=ndev, input_digest=digest)
+        result = run_pipeline(reads, params, capacity=args.capacity,
+                              metrics=metrics, ckpt=ckpt,
+                              profile_dir=args.profile,
+                              max_device_kmers=args.max_device_kmers,
+                              counter=args.counter, device=args.device)
+        contigs = result["contigs"]
 
     write_fasta(args.output, contigs, index=args.fai)
     from genome_tpu_torch.assemble.stats import assembly_stats

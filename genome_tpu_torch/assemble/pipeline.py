@@ -22,7 +22,8 @@ from genome_tpu_torch.assemble.checkpoint import PhaseCheckpointer
 from genome_tpu_torch.assemble.metrics import Metrics
 from genome_tpu_torch.graph.build import build_graph_device
 from genome_tpu_torch.graph.contigs import emit_contigs_device
-from genome_tpu_torch.graph.simplify import final_chain_state, run_pass_inc
+from genome_tpu_torch.graph import simplify as graph_simplify
+from genome_tpu_torch.graph.simplify import final_chain_state
 from genome_tpu_torch.kernels.count import (count_kmers_device, filter_table,
                                             merge_tables)
 from genome_tpu_torch.kernels.extract import (
@@ -176,31 +177,17 @@ def _count_streaming(keys, params, capacity, metrics, chunk: int,
 def simplify_with_metrics(succ, okv, counts, alive, valid_node, params,
                           metrics: Metrics | None = None,
                           with_links: bool = False):
-    """Fixpoint loop: tips then bubbles per round (SEMANTICS §5), one
-    host round trip per round.
+    """graph.simplify.simplify_device, the fixpoint loop, with a
+    `simplify_round` event a round in `metrics` (its changed flags, the
+    alive count and the wall).
 
     with_links: also return the final round's (next_u, prev_u) links for
     final_chain_state (None if the loop never reached a clean fixpoint)."""
-    links = deg = lc = None
-    for rnd in range(params.max_rounds):
-        t0 = time.perf_counter()
-        alive, c1, _l1, deg, lc = run_pass_inc(
-            "tips", succ, okv, counts, alive, valid_node,
-            params.tip_len_eff, params.tip_len_eff, deg, lc)
-        alive, c2, l2, deg, lc = run_pass_inc(
-            "bubbles", succ, okv, counts, alive, valid_node,
-            params.bubble_len_eff, params.bubble_len_eff, deg, lc)
-        c1b, c2b, n_alive = torch.stack(
-            [c1.to(torch.int64), c2.to(torch.int64),
-             (alive & valid_node).sum()]).tolist()
-        if metrics:
-            metrics.log("simplify_round", round=rnd, tips=bool(c1b),
-                        bubbles=bool(c2b), alive=n_alive,
-                        wall_s=round(time.perf_counter() - t0, 4))
-        if not (c1b or c2b):
-            links = l2
-            break
-    return (alive, links) if with_links else alive
+    on_round = functools.partial(metrics.log, "simplify_round") \
+        if metrics else None
+    return graph_simplify.simplify_device(succ, okv, counts, alive,
+                                          valid_node, params, with_links,
+                                          on_round)
 
 
 @contextlib.contextmanager
@@ -306,6 +293,10 @@ def run_pipeline(reads, params: AssemblyParams,
             info["total_bp"] = sum(map(len, contigs))
     stats["n_contigs"] = len(contigs)
     return {"contigs": contigs, "stats": stats}
+
+
+# the JAX pipeline's name for the same loop
+simplify_device = simplify_with_metrics
 
 
 def assemble_device(reads, params: AssemblyParams | None = None,

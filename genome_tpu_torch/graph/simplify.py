@@ -9,12 +9,14 @@ scalar read back from the device; each `jit` is gone.
 
 Oriented node ids v = 2*i + s as in SEMANTICS §3; rc(v) = v ^ 1. Node-id
 arrays are int32, k-mer values int64, coverage sums exact int64 (the JAX
-16-bit limbs exist only to keep u32 sums exact). Ranking is plain int64
-pointer doubling: the u32 (pointer, distance) packing of the TPU ruler
-ranking has no purpose here.
+16-bit limbs exist only to keep u32 sums exact). The final state ranks
+chains with JAX's ruler ranking in its unpacked form: int32 (pointer,
+distance) arrays, two gathers a doubling round.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -370,6 +372,50 @@ def _update_degrees(succ, alive2, valid_node, path, doomed_m, outdeg, usucc,
     return outdeg2, usucc2, next2, prev2, kovf, lovf
 
 
+def _public_pass(kind, succ, okv, counts, alive, valid_node, threshold,
+                 max_len, walk_m, with_links):
+    """clip_tips_pass / pop_bubbles_pass: run_pass_inc's walk ladder, or
+    the dense pass when max_len is None."""
+    if max_len is None:
+        dense = clip_tips_pass_dense if kind == "tips" \
+            else pop_bubbles_pass_dense
+        r = (*dense(succ, okv, counts, alive, valid_node, threshold, None),
+             None)
+    else:
+        r = run_pass_inc(kind, succ, okv, counts, alive, valid_node,
+                         threshold, max_len, None, None, walk_m)[:3]
+    return r if with_links else r[:2]
+
+
+def clip_tips_pass(succ, okv, counts, alive, valid_node, tip_len,
+                   max_len: int | None = None, walk_m=_WALK_M,
+                   with_links: bool = False):
+    """One tip-clipping pass (SEMANTICS §5). Returns (alive, changed)
+    [+ links when with_links].
+
+    Walk-based when max_len is given: escalates the candidate buffer
+    through the `walk_m` ladder and falls back to the dense pass on
+    overflow (walk_m is overridable so tests force every rung); the dense
+    pass when max_len is None.
+
+    with_links: also return (next_u, prev_u) as computed on the PRE-kill
+    alive mask (valid for the post state only when changed is False), or
+    None on the dense pass."""
+    return _public_pass("tips", succ, okv, counts, alive, valid_node,
+                        tip_len, max_len, walk_m, with_links)
+
+
+def pop_bubbles_pass(succ, okv, counts, alive, valid_node, bubble_len,
+                     max_len: int | None = None, walk_m=_WALK_M,
+                     with_links: bool = False):
+    """One bubble-popping pass (SEMANTICS §5). Returns (alive, changed)
+    [+ links when with_links, see clip_tips_pass]. Walk-based when max_len
+    is given, with the dense fallback on candidate overflow (partial walk
+    results are always discarded)."""
+    return _public_pass("bubbles", succ, okv, counts, alive, valid_node,
+                        bubble_len, max_len, walk_m, with_links)
+
+
 def run_pass_inc(kind: str, succ, okv, counts, alive, valid_node,
                  threshold: int, max_len: int, deg, links=None,
                  walk_m=_WALK_M):
@@ -417,19 +463,163 @@ def run_pass_inc(kind: str, succ, okv, counts, alive, valid_node,
     return a2, ch, None, None, None
 
 
+def simplify_device(succ, okv, counts, alive, valid_node, params,
+                    with_links: bool = False, on_round=None):
+    """Fixpoint loop (host-driven): tips then bubbles per round (SEMANTICS
+    §5), degrees and links carried across passes (run_pass_inc), one host
+    round trip per round.
+
+    with_links: also return the final round's (next_u, prev_u), valid for
+    the returned alive mask, or None when the loop hit max_rounds still
+    changing or ended on a dense fallback. on_round: called after each
+    round as on_round(round=, tips=, bubbles=, alive=, wall_s=), its
+    changed flags, the alive node count (read only for on_round) and its
+    wall."""
+    links = deg = lc = None
+    for rnd in range(params.max_rounds):
+        t0 = time.perf_counter()
+        alive, c1, _l1, deg, lc = run_pass_inc(
+            "tips", succ, okv, counts, alive, valid_node,
+            params.tip_len_eff, params.tip_len_eff, deg, lc)
+        alive, c2, l2, deg, lc = run_pass_inc(
+            "bubbles", succ, okv, counts, alive, valid_node,
+            params.bubble_len_eff, params.bubble_len_eff, deg, lc)
+        read = [c1.to(I64), c2.to(I64)]
+        if on_round:
+            read.append((alive & valid_node).sum())
+        c1b, c2b, *n_alive = torch.stack(read).tolist()
+        if on_round:
+            on_round(round=rnd, tips=bool(c1b), bubbles=bool(c2b),
+                     alive=n_alive[0],
+                     wall_s=round(time.perf_counter() - t0, 4))
+        if not (c1b or c2b):
+            links = l2  # computed on the final alive; no kills after
+            break
+    return (alive, links) if with_links else alive
+
+
 # ---------------------------------------------------------------------------
 # Final chain state for emission.
 # ---------------------------------------------------------------------------
 
 
-def _rank(prev_u):
-    """(head, dist, ok) by plain pointer doubling over prev links; ok is
-    False iff a cycle survives (its members never reach a head)."""
+# Chains need exact (head, dist) only at emission, and ranking a linked
+# list has a two-level form (JAX's _rank_rulers): the rulers are every
+# RULER_STRIDE-th oriented id (ids are sorted-k-mer ranks, so rulers fall
+# at hash-random places along a chain); phase 1 doubles each pointer only
+# until it rests on a ruler or a head (about log2 of the longest ruler gap
+# rounds, not log2(n2)), phase 2 ranks the n2/RULER_STRIDE rulers, and
+# the two compose. The same (head, dist) as full doubling on acyclic
+# graphs; a surviving cycle makes ok False, and the caller takes the
+# dense path, which breaks cycles.
+
+RULER_STRIDE = 16  # power of two; gap tail ~ STRIDE * ln(n2)
+# rounds between host reads of the phases' "a pointer moved" flags. A
+# round past the first unmoved one costs more than a read in phase 1
+# (about 9 full-size rounds at legacy's n2 = 9.4 M) and less in phase 2
+# (about 17 rounds over n2/16 ids). The flags of the rounds in between
+# stay on the device, so the result is JAX's, which stops after the
+# first round that moved no pointer.
+_P1_EVERY = 1
+_P2_EVERY = 2
+
+
+def _take(x, idx):
+    """x[idx] for an int32 idx without x[idx]'s cast of idx to int64 (an
+    extra full-size kernel a gather)."""
+    return x.index_select(0, idx)
+
+
+def _round(s):
+    """One plain doubling round of s = (p, d): (p[p], d + d[p]), and
+    whether a pointer moved."""
+    p, d = s
+    g = _take(p, p)
+    return (g, d + _take(d, p)), (g != p).any()
+
+
+def _until_unmoved(step, state, rounds: int, every: int):
+    """JAX's early-exit doubling loop: state, moved = step(state) until a
+    round moves no pointer, or `rounds` rounds. The flags are read every
+    `every` rounds and the state after the first unmoved round is kept
+    (on a cycle such a round can still add to a distance). Returns
+    (state, rounds run)."""
+    done = 0
+    while done < rounds:
+        states, moved = [], []
+        for _ in range(min(every, rounds - done)):
+            state, m = step(state)
+            states.append(state)
+            moved.append(m)
+        done += len(states)
+        moved = torch.stack(moved).tolist()
+        if not all(moved):
+            j = moved.index(False)
+            return states[j], done - len(states) + j + 1
+    return state, rounds
+
+
+def _rank_rulers(prev_u):
+    """(head, dist, ok, (phase-1 rounds, phase-2 rounds)) by ruler
+    ranking over the prev links; ok is False iff a cycle survives (its
+    members never reach a head).
+
+    Port of JAX's _rank_rulers (genome_tpu/graph/simplify.py:828-909) in
+    its unpacked form, on int32 (p, d) arrays that stay in the card's L2
+    where one packed int64 array would not. Each round is plain doubling
+    on fixpoints: in phase 1 a ruler's slot in the full arrays is one
+    (p[r] = r, d[r] = 0), as a head's is, while the rulers' own pointers
+    advance in n2/16 more slots; in phase 2 the ruler graph gets a slot
+    nr + j for the head that ruler j rests on. int32 distances wrap only on
+    a cycle (whose result the caller discards), as JAX's do, and never
+    saturate: JAX's packing schemes, _phase1_sat_fixup and its _SAT_K
+    buffer have no counterpart. JAX's next_u argument only gave n2."""
+    S, mask = RULER_STRIDE, RULER_STRIDE - 1
     n2 = prev_u.shape[0]
     ids = _ids(n2, prev_u.device)
-    head, dist = _double(prev_u, ids, max(1, (n2 - 1).bit_length() + 1))
-    ok = ~(prev_u[head] >= 0).any()
-    return head, dist, ok
+    has_prev = prev_u >= 0
+    p = torch.where(has_prev, prev_u, ids)
+    d = has_prev.to(I32)
+
+    # phase 1: every pointer doubles until it rests on a ruler or a head.
+    # Slots [0, n2) hold each node's pointer, with each ruler's slot a
+    # fixpoint (p[r] = r, d[r] = 0) as a head's is; slot n2 + j holds
+    # ruler j's own pointer. Every pointer is an id, so plain doubling
+    # rounds over all the slots are JAX's phase 1.
+    p, d = torch.cat([p, p[::S]]), torch.cat([d, d[::S]])
+    p[:n2:S], d[:n2:S] = ids[::S], 0
+    (p, d), r1 = _until_unmoved(
+        _round, (p, d), max(1, (n2 - 1).bit_length() + 1), _P1_EVERY)
+    p, d, rp, rd = p[:n2], d[:n2], p[n2:], d[n2:]
+
+    # phase 2: the rulers double over the ruler graph, in slots: ruler j
+    # points at slot rp // S if it rests on a ruler, else at its own head
+    # slot nr + j, a fixpoint
+    nr = rp.shape[0]
+    hs = torch.arange(nr, 2 * nr, dtype=I32, device=prev_u.device)
+    jp = torch.cat([torch.where((rp & mask) == 0, rp // S, hs), hs])
+    jd = torch.cat([rd, torch.zeros_like(rd)])
+    (jp, jd), r2 = _until_unmoved(
+        _round, (jp, jd), max(1, (nr - 1).bit_length() + 1), _P2_EVERY)
+    jr = jp[:nr]
+    # a ruler-level cycle: some ruler still points at a ruler that moves
+    p2_ok = ~((jr < nr) & (_take(jp, jr) != jr)).any()
+
+    # compose: q, e are the full arrays with each ruler's slot holding its
+    # phase-2 (pointer, distance); p is each node's nearest ruler-or-head
+    # ancestor after phase 1 (q and p agree off the ruler slots)
+    q, e = p.clone(), d.clone()
+    q[::S], e[::S] = _take(torch.cat([ids[::S], rp]), jr), jd[:nr]
+    p[::S], d[::S] = rp, rd
+    a_rul = (p & mask) == 0
+    g = _take(q, p)
+    head = torch.where(a_rul, g, p)
+    dist = d + torch.where(a_rul, _take(e, p), 0)
+    # non-convergence at the round bound: a ruler-free cycle
+    p1_ok = ~(~a_rul & (g != p)).any()
+    # a composed head must be a true head; a cycle would leave prev >= 0
+    ok = p1_ok & p2_ok & ~_take(has_prev, head).any()
+    return head, dist, ok, (r1, r2)
 
 
 def _final_chain_state_links(succ, okv, counts, alive, valid_node, next_u,
@@ -440,7 +630,7 @@ def _final_chain_state_links(succ, okv, counts, alive, valid_node, next_u,
     dev = succ.device
     ids = _ids(n2, dev)
     alive_o = _alive_o(alive, valid_node)
-    head_r, dist_r, ok = _rank(prev_u)
+    head_r, dist_r, ok, _ = _rank_rulers(prev_u)
     if bool(ok):
         head = torch.where(alive_o, head_r, -1)
         dist = torch.where(alive_o, dist_r, 0)
@@ -472,8 +662,8 @@ def _final_chain_state_links(succ, okv, counts, alive, valid_node, next_u,
 def final_chain_state(succ, okv, counts, alive, valid_node, links=None):
     """Chain state + primary mask for contig emission (SEMANTICS §6).
 
-    Fast path: pointer-doubling ranks + the tail twins the primary pin
-    needs; the dense path (exact cycle breaking) when any cycle survives.
+    Fast path: ruler ranking + the tail twins the primary pin needs; the
+    dense path (exact cycle breaking) when any cycle survives.
     links: optional (next_u, prev_u) computed on exactly this alive mask."""
     if links is None:
         links = _links(*_degrees(succ, _alive_o(alive, valid_node)))

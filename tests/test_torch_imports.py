@@ -1,5 +1,6 @@
 """Import hygiene of the port: every module of genome_tpu_torch imports in
-a fresh interpreter without pulling in JAX or anything of genome_tpu."""
+a fresh interpreter without pulling in JAX or anything of genome_tpu; the
+golden oracles pull in no torch and none of the code they check."""
 
 import pkgutil
 import subprocess
@@ -48,3 +49,19 @@ def test_every_module_is_listed():
 def test_module_imports_without_jax(import_results, mod):
     r = import_results[mod]
     assert r.returncode == 0, r.stderr
+
+
+def test_golden_is_independent_of_the_checked_code():
+    """genome_tpu_torch.golden imports only the port's params and
+    utils.dna: no torch, no kernel, graph or assemble module."""
+    check = ("import sys, genome_tpu_torch.golden\n"
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('torch', 'jax', 'genome_tpu', 'genome_tpu_torch')))")
+    r = subprocess.run([sys.executable, "-c", check], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert eval(r.stdout) == [
+        "genome_tpu_torch", "genome_tpu_torch.golden",
+        "genome_tpu_torch.golden.assembler", "genome_tpu_torch.golden.tiny",
+        "genome_tpu_torch.params", "genome_tpu_torch.utils",
+        "genome_tpu_torch.utils.dna"]

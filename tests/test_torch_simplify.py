@@ -1,8 +1,10 @@
 """Graph simplification and final chain state in the port against the JAX
 package, exactly: the alive mask (and carried degrees and links) after
 every tips and bubbles pass, every rung of the walk-buffer ladder and the
-dense fallback, and (head, dist, primary) of final_chain_state, including
-a circular genome that takes the cycle fallback."""
+dense fallback (run_pass_inc and the public clip_tips_pass /
+pop_bubbles_pass), the simplify_device fixpoint loop, the ruler ranking's
+(head, dist, ok), and (head, dist, primary) of final_chain_state,
+including a circular genome that takes the cycle fallback."""
 
 import numpy as np
 import pytest
@@ -158,7 +160,7 @@ def test_final_chain_state_matches_jax_after_fixpoint():
                                    jnp.ones((cap,), jnp.bool_), j["valid"],
                                    params)
     pfs = _assert_final_equal(j, p, jalive)
-    assert bool(simp._rank(simp._links(*simp._degrees(
+    assert bool(simp._rank_rulers(simp._links(*simp._degrees(
         p["succ"], pfs["alive_o"]))[1])[2]), "acyclic: fast path"
 
 
@@ -169,7 +171,8 @@ def test_final_chain_state_circular_takes_cycle_fallback():
     alive = torch.ones(cap, dtype=torch.bool)
     _, prev_u = simp._links(*simp._degrees(p["succ"],
                                            simp._alive_o(alive, p["valid"])))
-    assert not bool(simp._rank(prev_u)[2]), "circular genome: a cycle"
+    assert not bool(simp._rank_rulers(prev_u)[2]), \
+        "circular genome: a cycle"
     pfs = _assert_final_equal(j, p, jnp.ones((cap,), jnp.bool_))
     assert int(pfs["primary"].sum()) == 1
 
@@ -191,7 +194,7 @@ def _random_chains(rng, n_nodes, n_chains, with_cycle=False):
                                            (3, 64, 64)])
 def test_rank_matches_sequential_walk(seed, n, chains):
     prev_u = _random_chains(np.random.default_rng(seed), n, chains)
-    head, dist, ok = simp._rank(torch.from_numpy(prev_u))
+    head, dist, ok, _ = simp._rank_rulers(torch.from_numpy(prev_u))
     assert bool(ok)
     for v in range(prev_u.size):
         h, d = v, 0
@@ -202,7 +205,108 @@ def test_rank_matches_sequential_walk(seed, n, chains):
 
 def test_rank_detects_cycle():
     prev_u = _random_chains(np.random.default_rng(5), 400, 3, with_cycle=True)
-    assert not bool(simp._rank(torch.from_numpy(prev_u))[2])
+    assert not bool(simp._rank_rulers(torch.from_numpy(prev_u))[2])
+
+
+def _next_of(prev_u):
+    """The next links of a prev-link array (JAX's _rank_rulers takes
+    both)."""
+    nxt = np.full(prev_u.size, -1, np.int32)
+    has = prev_u >= 0
+    nxt[prev_u[has]] = np.nonzero(has)[0]
+    return nxt
+
+
+def _rank_case(name):
+    rng = np.random.default_rng(11)
+    if name == "chains":
+        return _random_chains(rng, 2000, 60)
+    if name == "cycle":
+        return _random_chains(rng, 600, 4, with_cycle=True)
+    if name == "long_gap":  # one chain of 1500 non-rulers: gap > 2^9
+        prev_u = np.full(4096, -1, np.int32)
+        ids = np.array([i for i in range(4096) if i % simp.RULER_STRIDE])
+        ids = ids[rng.permutation(ids.size)[:1500]]
+        prev_u[ids[1:]] = ids[:-1]
+        return prev_u
+    # n2 = 2011: the last ruler block is cut short
+    prev_u = _random_chains(rng, 1005, 7)
+    return np.concatenate([prev_u, np.full(1, -1, np.int32)])
+
+
+@pytest.mark.parametrize("name", ["chains", "cycle", "long_gap",
+                                  "ragged_n2"])
+def test_rank_rulers_matches_jax(name):
+    prev_u = _rank_case(name)
+    jh, jd, jok = jsimp._rank_rulers(jnp.asarray(_next_of(prev_u)),
+                                     jnp.asarray(prev_u))
+    head, dist, ok, (r1, r2) = simp._rank_rulers(torch.from_numpy(prev_u))
+    assert np.array_equal(head.numpy(), np.asarray(jh))
+    assert np.array_equal(dist.numpy(), np.asarray(jd))
+    assert bool(ok) == bool(jok) == (name != "cycle")
+    assert r1 >= (10 if name == "long_gap" else 1) and r2 >= 1
+
+
+@pytest.mark.parametrize("kind", ["tips", "bubbles"])
+@pytest.mark.parametrize("rung", ["first_fits", "second_fits", "dense",
+                                  "max_len_none"])
+def test_public_passes_match_jax(kind, rung):
+    """clip_tips_pass / pop_bubbles_pass at each walk_m rung, on the
+    dense fallback and with max_len=None: alive, changed and the pre-kill
+    links equal JAX's, and with_links=False returns the same pair."""
+    j, p, params, cap = _error_graph(seed=37, glen=1300)
+    thr = params.tip_len_eff if kind == "tips" else params.bubble_len_eff
+    jfn = jsimp.clip_tips_pass if kind == "tips" else jsimp.pop_bubbles_pass
+    pfn = simp.clip_tips_pass if kind == "tips" else simp.pop_bubbles_pass
+    outdeg, usucc = simp._degrees(p["succ"], simp._alive_o(
+        torch.ones(cap, dtype=torch.bool), p["valid"]))
+    nh = int((simp._links(outdeg, usucc)[1] < 0).sum())
+    small = 1 << max(1, (nh // 4).bit_length() - 1)
+    big = 1 << nh.bit_length()
+    ladder = {"first_fits": (big,), "second_fits": (small, big),
+              "dense": (small, small), "max_len_none": (big,)}[rung]
+    max_len = None if rung == "max_len_none" else thr
+    ja, jch, jl = jfn(j["succ"], j["okh"], j["okl"], j["cnt"],
+                      jnp.ones((cap,), jnp.bool_), j["valid"], jnp.int32(thr),
+                      max_len=max_len, walk_m=ladder, with_links=True)
+    args = (p["succ"], p["okv"], p["cnt"], torch.ones(cap, dtype=torch.bool),
+            p["valid"], thr)
+    pa, pch, pl = pfn(*args, max_len=max_len, walk_m=ladder, with_links=True)
+    assert np.array_equal(_np(pa), np.asarray(ja))
+    assert bool(pch) == bool(jch) and bool(pch)
+    _assert_pair_equal(pl, jl, "links")
+    assert (pl is None) == (rung in ("dense", "max_len_none"))
+    pa2, pch2 = pfn(*args, max_len=max_len, walk_m=ladder)
+    assert torch.equal(pa2, pa) and bool(pch2) == bool(pch)
+
+
+@pytest.mark.parametrize("with_links", [False, True])
+def test_simplify_device_matches_jax(with_links):
+    """The fixpoint loop: the alive mask (and the final round's links)
+    equal JAX's simplify_device; the pipeline's simplify_device alias
+    gives the same, with a simplify_round event a round."""
+    from genome_tpu_torch.assemble import pipeline
+    from genome_tpu_torch.assemble.metrics import Metrics
+    from genome_tpu_torch.graph import simplify_device
+    j, p, params, cap = _error_graph(seed=29, glen=1800)
+    want = jsimp.simplify_device(j["succ"], j["okh"], j["okl"], j["cnt"],
+                                 jnp.ones((cap,), jnp.bool_), j["valid"],
+                                 params, with_links=with_links)
+    args = (p["succ"], p["okv"], p["cnt"], torch.ones(cap, dtype=torch.bool),
+            p["valid"], params)
+    got = simplify_device(*args, with_links=with_links)
+    if with_links:
+        (got, links), (want, wlinks) = got, want
+        assert links is not None
+        _assert_pair_equal(links, wlinks, "links")
+    assert np.array_equal(_np(got), np.asarray(want))
+    assert int((~got & p["valid"]).sum()) > 0
+    m = Metrics(quiet=True)
+    alias = pipeline.simplify_device(*args, m, with_links=with_links)
+    assert torch.equal(alias[0] if with_links else alias, got)
+    rounds = [e for e in m.events if e["event"] == "simplify_round"]
+    assert len(rounds) > 1 and rounds[-1]["alive"] == int(
+        (got & p["valid"]).sum())
 
 
 @pytest.mark.parametrize("cap", [None, 2])
