@@ -17,13 +17,12 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 import numpy as np
 
 from genome_tpu_torch.assemble.checkpoint import (PhaseCheckpointer,
                                                   device_count, input_digest)
-from genome_tpu_torch.assemble.metrics import Metrics
+from genome_tpu_torch.assemble.metrics import Metrics, span
 from genome_tpu_torch.io import read_fastx, write_fasta
 from genome_tpu_torch.params import AssemblyParams
 
@@ -112,22 +111,21 @@ def main(argv: list[str] | None = None) -> int:
         return 2
 
     metrics = Metrics(path=args.metrics, quiet=args.quiet)
-    t0 = time.perf_counter()
     try:
-        if args.io == "native" and args.backend == "device":
-            reads = _read_codes(args.reads)
-            n_reads, total_bp = len(reads), int(np.count_nonzero(reads < 4))
-        else:
-            reads = []
-            for path in args.reads:
-                reads.extend(read_fastx(path))
-            n_reads, total_bp = len(reads), sum(map(len, reads))
+        with metrics.phase("read_input") as info:
+            if args.io == "native" and args.backend == "device":
+                reads = _read_codes(args.reads)
+                with span("parse.bases"):
+                    total_bp = int(np.count_nonzero(reads < 4))
+            else:
+                reads = []
+                for path in args.reads:
+                    reads.extend(read_fastx(path))
+                total_bp = sum(map(len, reads))
+            info["n_reads"], info["total_bp"] = len(reads), total_bp
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    metrics.log("phase_end", phase="read_input",
-                wall_s=round(time.perf_counter() - t0, 4),
-                n_reads=n_reads, total_bp=total_bp)
     if args.counter == "hashtable" and total_bp > 5_000_000:
         print("warning: --counter hashtable is a parity oracle and much "
               "slower than --counter sort on an input this large",

@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from genome_tpu_torch.assemble.checkpoint import PhaseCheckpointer
-from genome_tpu_torch.assemble.metrics import Metrics
+from genome_tpu_torch.assemble.metrics import (Metrics, count, host_read,
+                                                span)
 from genome_tpu_torch.graph.build import build_graph_device
 from genome_tpu_torch.graph.contigs import emit_contigs_device
 from genome_tpu_torch.graph import simplify as graph_simplify
@@ -43,9 +44,9 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(13, (max(n, 1) - 1).bit_length())
 
 
-def _sync(dev: torch.device) -> None:
+def _sync(dev: torch.device, site: str) -> None:
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        host_read(site, lambda: torch.cuda.synchronize(dev))
 
 
 def _check_counter(counter: str) -> None:
@@ -75,18 +76,26 @@ def extract_stream(reads, k: int, device="cuda", batch_reads: int = 65536,
     are: no row or column padding, so the stream holds exactly
     R * (L - k + 1) windows."""
     dev = resolve_device(device)
-    if isinstance(reads, np.ndarray):
-        parts = [_extract_codes(reads[i : i + chunk_rows], k, dev)
-                 for i in range(0, reads.shape[0], chunk_rows)]
-    else:
-        L = max((len(r) for r in reads), default=0)
-        parts = [extract_canonical_kmers(
-                    torch.from_numpy(pack_reads(reads[i : i + batch_reads],
-                                                L)).to(dev), k)
-                 for i in range(0, len(reads), batch_reads)]
+    with span("count.extract", device=dev):
+        if isinstance(reads, np.ndarray):
+            parts = [_extract_codes(reads[i : i + chunk_rows], k, dev)
+                     for i in range(0, reads.shape[0], chunk_rows)]
+        else:
+            L = max((len(r) for r in reads), default=0)
+            parts = [extract_canonical_kmers(
+                         _upload(pack_reads(reads[i : i + batch_reads], L),
+                                 dev), k)
+                     for i in range(0, len(reads), batch_reads)]
     if not parts:
         return torch.zeros(0, dtype=torch.int64, device=dev)
     return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _upload(codes: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A batch of the string path's codes, copied as they are."""
+    if dev.type == "cuda":
+        count("h2d_bytes", codes.nbytes)
+    return torch.from_numpy(codes).to(dev)
 
 
 def _extract_codes(codes: np.ndarray, k: int,
@@ -98,7 +107,11 @@ def _extract_codes(codes: np.ndarray, k: int,
     tensors: the caching host allocator hands a block out again only
     after the copy that read it has finished."""
     cuda = dev.type == "cuda"
-    packed, invalid, has_invalid = pack_codes_host(codes, pin_memory=cuda)
+    with span("count.pack"):
+        packed, invalid, has_invalid = pack_codes_host(codes,
+                                                       pin_memory=cuda)
+    if cuda:
+        count("h2d_bytes", packed.nbytes + has_invalid * invalid.nbytes)
     packed = packed.to(dev, non_blocking=cuda)
     L = codes.shape[1]
     if not has_invalid:
@@ -134,12 +147,13 @@ def count_reads(reads, params: AssemblyParams, capacity: int | None = None,
         res = _counter_fn(counter, params.k, seg)(keys, params.min_coverage,
                                                   cap)
         # one host round trip for both scalars
-        ovf, n_unique = torch.stack([res["overflow"].to(torch.int64),
-                                     res["n_unique"]]).tolist()
+        ovf, n_unique = host_read("count.overflow", lambda: torch.stack(
+            [res["overflow"].to(torch.int64), res["n_unique"]]).tolist())
         if not ovf:
             res["n_windows"] = n_windows
             res["n_unique_host"] = n_unique
             return res
+        count("retries")
         if metrics:
             metrics.log("capacity_overflow", capacity=cap, retry=2 * cap)
         cap *= 2
@@ -162,13 +176,15 @@ def _count_streaming(keys, params, capacity, metrics, chunk: int,
             counted = chunk_fn(part, 1, cap)
             running = counted if running is None else merge_tables(
                 running, counted, 1, cap)
-            if bool(running["overflow"] | counted["overflow"]):
+            if host_read("count.chunk_overflow", lambda: bool(
+                    running["overflow"] | counted["overflow"])):
                 overflowed = True
                 break
         if not overflowed:
             res = filter_table(running, params.min_coverage)
             res["n_windows"] = n_windows
             return res
+        count("retries")
         if metrics:
             metrics.log("capacity_overflow", capacity=cap, retry=2 * cap)
         cap *= 2
@@ -190,19 +206,40 @@ def simplify_with_metrics(succ, okv, counts, alive, valid_node, params,
                                           on_round)
 
 
+PROFILE_ANNOTATION = "run_pipeline"
+_PROLOGUE_ROUNDS = 8  # a pinned copy, a kernel and a fill each
+_PROFILE_MARGIN_S = 0.2
+
+
 @contextlib.contextmanager
 def _profiled(profile_dir: str | None, dev: torch.device):
-    """torch.profiler over the block; a Chrome trace lands in profile_dir."""
+    """torch.profiler over the block, which is the PROFILE_ANNOTATION
+    range; a Chrome trace lands in profile_dir. On the card the profiler
+    loses the device records of a session's first calls
+    (scripts/torch_profiler_probe.py), so the session opens with a
+    prologue of copies, kernels and fills that nothing reads, a sync and a
+    short wait, and waits again after the block."""
     if not profile_dir:
         yield
         return
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cuda = dev.type == "cuda"
     acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
     with profile(activities=acts) as prof:
-        yield
+        if cuda:
+            host = torch.zeros(1024, dtype=torch.uint8).pin_memory()
+            for _ in range(_PROLOGUE_ROUNDS):
+                host.to(dev, non_blocking=True).add_(1).zero_()
+            torch.cuda.synchronize(dev)
+            time.sleep(_PROFILE_MARGIN_S)
+        with record_function(PROFILE_ANNOTATION):
+            yield
+        if cuda:
+            torch.cuda.synchronize(dev)
+            time.sleep(_PROFILE_MARGIN_S)
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
@@ -233,18 +270,19 @@ def run_pipeline(reads, params: AssemblyParams,
             stats["n_windows"] = int(saved["n_windows"])
         else:
             with metrics.phase("count") as info:
-                t0 = time.perf_counter()
-                res = count_reads(reads, params, capacity, metrics,
-                                  max_device_kmers=max_device_kmers,
-                                  counter=counter, device=dev)
-                table, counts = res["table"], res["counts"]
-                n_unique = res.get("n_unique_host")
-                if n_unique is None:
-                    n_unique = int(res["n_unique"])
-                dt = time.perf_counter() - t0
+                with span("count.reads") as sp:
+                    res = count_reads(reads, params, capacity, metrics,
+                                      max_device_kmers=max_device_kmers,
+                                      counter=counter, device=dev)
+                    table, counts = res["table"], res["counts"]
+                    n_unique = res.get("n_unique_host")
+                    if n_unique is None:
+                        n_unique = host_read("count.n_unique",
+                                             lambda: int(res["n_unique"]))
                 stats["n_windows"] = info["n_windows"] = res["n_windows"]
                 info["n_unique"] = n_unique
-                info["kmers_per_s"] = round(res["n_windows"] / max(dt, 1e-9))
+                info["kmers_per_s"] = round(res["n_windows"]
+                                            / max(sp.wall_s, 1e-9))
             ckpt.save("count", table=table, counts=counts, n_unique=n_unique,
                       n_windows=stats["n_windows"])
         stats["n_unique"] = n_unique
@@ -259,7 +297,7 @@ def run_pipeline(reads, params: AssemblyParams,
         # ---- phase: build ----
         with metrics.phase("build") as info:
             succ, okv = build_graph_device(table, n_unique, params.k)
-            _sync(dev)
+            _sync(dev, "build.sync")
             info["nodes"] = n_unique
 
         # ---- phase: simplify ----
@@ -268,27 +306,30 @@ def run_pipeline(reads, params: AssemblyParams,
         if saved is not None and saved["alive"].shape[0] == cap2:
             metrics.log("resume", phase="simplify")
             alive = torch.from_numpy(saved["alive"]).to(dev)
+            n_alive = host_read("simplify.alive",
+                                lambda: int((alive & valid_node).sum()))
         else:
             with metrics.phase("simplify") as info:
                 alive = torch.ones(cap2, dtype=torch.bool, device=dev)
                 alive, links = simplify_with_metrics(
                     succ, okv, counts, alive, valid_node, params, metrics,
                     with_links=True)
-                info["alive"] = int((alive & valid_node).sum())
+                n_alive = info["alive"] = host_read(
+                    "simplify.alive", lambda: int((alive & valid_node).sum()))
             ckpt.save("simplify", alive=alive)
-        stats["n_alive"] = int((alive & valid_node).sum())
+        stats["n_alive"] = n_alive
 
         # ---- phase: contigs ----
         with metrics.phase("contigs") as info:
-            t0 = time.perf_counter()
-            fs = final_chain_state(succ, okv, counts, alive, valid_node,
-                                   links=links)
-            _sync(dev)
-            info["final_s"] = round(time.perf_counter() - t0, 4)
-            t0 = time.perf_counter()
-            contigs = emit_contigs_device(fs, okv, params.k,
-                                          params.min_contig_len)
-            info["emit_s"] = round(time.perf_counter() - t0, 4)
+            with span("final") as sp:
+                fs = final_chain_state(succ, okv, counts, alive, valid_node,
+                                       links=links)
+                _sync(dev, "final.sync")
+            info["final_s"] = round(sp.wall_s, 6)
+            with span("emit") as sp:
+                contigs = emit_contigs_device(fs, okv, params.k,
+                                              params.min_contig_len)
+            info["emit_s"] = round(sp.wall_s, 6)
             info["n_contigs"] = len(contigs)
             info["total_bp"] = sum(map(len, contigs))
     stats["n_contigs"] = len(contigs)

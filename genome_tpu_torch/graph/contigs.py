@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from genome_tpu_torch.assemble.metrics import count, host_read, span
 from genome_tpu_torch.kernels.compact import compact_ids
 from genome_tpu_torch.kernels.keys import INT64_MAX
 from genome_tpu_torch.utils import dna
@@ -101,22 +102,29 @@ def emit_contigs_device(final_state, okv, k: int, min_contig_len: int = 0,
     n2 = head.shape[0]
     if n2 == 0:
         return []
-    words, hs, first, n_sel = _chain_order_device(
-        head, final_state["dist"], final_state["primary"],
-        final_state["alive_o"], okv, node_primary)
-    cap = contig_cap or max(4096, n2 >> 6)
-    starts, n_contigs, _ = compact_ids(first, cap, site="contig_starts")
-    n_sel, n_contigs = torch.stack([n_sel, n_contigs]).tolist()
-    if n_contigs > cap:
-        starts, _, _ = compact_ids(first, n_contigs, site="contig_starts")
-    if n_contigs == 0:
-        return []
-    starts = starts[:n_contigs]
-    first_kmers = okv[hs[starts]]
-    words = _host(words[: -(-n_sel // 16)])
-    meta = _host(torch.stack([starts, first_kmers]))
-    codes = ((words[:, None] >> (2 * np.arange(16, dtype=np.int64)))
-             & 3).astype(np.uint8).reshape(-1)
-    starts = meta[0]
-    ends = np.concatenate([starts[1:], [n_sel]])
-    return _assemble(starts, ends, meta[1], codes, k, min_contig_len)
+    with span("emit.device"):
+        words, hs, first, n_sel = _chain_order_device(
+            head, final_state["dist"], final_state["primary"],
+            final_state["alive_o"], okv, node_primary)
+        cap = contig_cap or max(4096, n2 >> 6)
+        starts, n_contigs, _ = compact_ids(first, cap, site="contig_starts")
+        n_sel, n_contigs = host_read("emit.counts", torch.stack(
+            [n_sel, n_contigs]).tolist)
+        if n_contigs > cap:
+            count("retries")
+            starts, _, _ = compact_ids(first, n_contigs, site="contig_starts")
+        if n_contigs == 0:
+            return []
+        starts = starts[:n_contigs]
+        first_kmers = okv[hs[starts]]
+    with span("emit.copy"):
+        words = host_read("emit.bases", lambda: _host(
+            words[: -(-n_sel // 16)]))
+        meta = host_read("emit.starts", lambda: _host(
+            torch.stack([starts, first_kmers])))
+    with span("emit.strings"):
+        codes = ((words[:, None] >> (2 * np.arange(16, dtype=np.int64)))
+                 & 3).astype(np.uint8).reshape(-1)
+        starts = meta[0]
+        ends = np.concatenate([starts[1:], [n_sel]])
+        return _assemble(starts, ends, meta[1], codes, k, min_contig_len)

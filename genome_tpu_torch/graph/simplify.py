@@ -20,6 +20,7 @@ import time
 
 import torch
 
+from genome_tpu_torch.assemble.metrics import count, host_read
 from genome_tpu_torch.kernels.compact import compact_flagged, compact_ids
 from genome_tpu_torch.kernels.keys import INT64_MAX
 
@@ -118,7 +119,8 @@ def _chain_state(succ, okv, counts, alive, valid_node,
     p, d = _double(prev_u, ids, rounds)
     in_cycle = alive_o & (prev_u[p] >= 0)
 
-    if max_len is None and bool(in_cycle.any()):
+    if max_len is None and host_read("chain.cycles",
+                                     lambda: bool(in_cycle.any())):
         # min-doubling carrying (okv, id) over the unbroken prev pointers
         mn_v, mn_i = okv, ids
         q = torch.where(prev_u >= 0, prev_u, ids)
@@ -446,14 +448,18 @@ def run_pass_inc(kind: str, succ, okv, counts, alive, valid_node,
             path, doomed, ovf = _bubbles_body(
                 alive, valid_node, outdeg, usucc, next_u, prev_u, okv,
                 counts, threshold, L, M)
-        if bool(ovf):
+        if host_read("walk.overflow", lambda: bool(ovf)):
+            count("retries")  # the next rung, or the dense pass
             continue
         alive2 = _kill_paths(alive, path, doomed)
         od2, us2, nx2, pv2, kovf, lovf = _update_degrees(
             succ, alive2, valid_node, path, doomed, outdeg, usucc, next_u,
             _KILL_M)
         changed = doomed.any()
-        kovf, lovf = torch.stack([kovf, lovf]).tolist()
+        kovf, lovf = host_read("walk.update", lambda: torch.stack(
+            [kovf, lovf]).tolist())
+        if kovf or lovf:
+            count("retries")  # the next pass recomputes what overflowed
         if kovf:
             return alive2, changed, links, None, None
         return alive2, changed, links, (od2, us2), \
@@ -487,11 +493,12 @@ def simplify_device(succ, okv, counts, alive, valid_node, params,
         read = [c1.to(I64), c2.to(I64)]
         if on_round:
             read.append((alive & valid_node).sum())
-        c1b, c2b, *n_alive = torch.stack(read).tolist()
+        c1b, c2b, *n_alive = host_read("simplify.round",
+                                       torch.stack(read).tolist)
         if on_round:
             on_round(round=rnd, tips=bool(c1b), bubbles=bool(c2b),
                      alive=n_alive[0],
-                     wall_s=round(time.perf_counter() - t0, 4))
+                     wall_s=round(time.perf_counter() - t0, 6))
         if not (c1b or c2b):
             links = l2  # computed on the final alive; no kills after
             break
@@ -552,7 +559,7 @@ def _until_unmoved(step, state, rounds: int, every: int):
             states.append(state)
             moved.append(m)
         done += len(states)
-        moved = torch.stack(moved).tolist()
+        moved = host_read("final.rounds", torch.stack(moved).tolist)
         if not all(moved):
             j = moved.index(False)
             return states[j], done - len(states) + j + 1
@@ -631,7 +638,7 @@ def _final_chain_state_links(succ, okv, counts, alive, valid_node, next_u,
     ids = _ids(n2, dev)
     alive_o = _alive_o(alive, valid_node)
     head_r, dist_r, ok, _ = _rank_rulers(prev_u)
-    if bool(ok):
+    if host_read("final.ok", lambda: bool(ok)):
         head = torch.where(alive_o, head_r, -1)
         dist = torch.where(alive_o, dist_r, 0)
         is_head = alive_o & (head == ids)
@@ -640,7 +647,8 @@ def _final_chain_state_links(succ, okv, counts, alive, valid_node, next_u,
         # after simplification: compact the tails, scatter okv(rc(tail))
         # to each tail's head
         tails, n_t, tovf = compact_ids(is_tail, _TAIL_M, site="tails")
-        if bool(tovf):
+        if host_read("final.tails", lambda: bool(tovf)):
+            count("retries")
             tail_of = _set_drop(torch.full((n2,), -1, dtype=I32, device=dev),
                                 torch.where(is_tail, head, n2), ids)
             tc = tail_of.clamp(min=0)
@@ -653,6 +661,7 @@ def _final_chain_state_links(succ, okv, counts, alive, valid_node, next_u,
                 torch.where(treal, head[tc], n2), okv[tc ^ 1])
         primary = is_head & (okv <= twin)
     else:
+        count("retries")  # a cycle survives: the dense path breaks it
         st = _chain_state(succ, okv, counts, alive, valid_node)
         head, dist = st["head"], st["dist"]
         primary = st["is_head"] & (okv <= st["twin"])

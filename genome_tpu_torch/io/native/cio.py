@@ -27,6 +27,8 @@ from pathlib import Path
 
 import numpy as np
 
+from genome_tpu_torch.assemble.metrics import span
+
 SRC = Path(__file__).resolve().parent / "fastx_native.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 CXX = "g++"
@@ -235,7 +237,8 @@ def parse_fastx_codes(path, length: int | None = None,
     range-sized."""
     lib = load()
     with _mapped(path) as (addr, n):
-        rows, maxlen = _scan(lib, path, addr, n)
+        with span("parse.scan"):
+            rows, maxlen = _scan(lib, path, addr, n)
         L = length if length is not None else maxlen
         lo, hi = 0, rows
         if record_range is not None:
@@ -244,13 +247,15 @@ def parse_fastx_codes(path, length: int | None = None,
         out = np.empty((hi - lo, max(L, 1)), dtype=np.uint8)
         if hi > lo:
             offsets = np.empty((rows,), dtype=np.int64)
-            got = _check(path, lib.gt_index(addr, n, offsets.ctypes.data,
-                                            rows))
+            with span("parse.index"):
+                got = _check(path, lib.gt_index(addr, n, offsets.ctypes.data,
+                                                rows))
             if got != rows:
                 raise RuntimeError(f"{path}: scan counted {rows} records, "
                                    f"index {got}")
             sub = np.ascontiguousarray(offsets[lo:hi])
-            _check(path, lib.gt_parse_mt(addr, n, sub.ctypes.data, hi - lo,
-                                         out.ctypes.data, out.shape[1],
-                                         _threads(threads)))
+            with span("parse.decode"):
+                _check(path, lib.gt_parse_mt(addr, n, sub.ctypes.data,
+                                             hi - lo, out.ctypes.data,
+                                             out.shape[1], _threads(threads)))
     return out[:, :L] if L else out

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from genome_tpu_torch.assemble.metrics import span
 from genome_tpu_torch.kernels.compact import compact_flagged
 from genome_tpu_torch.kernels.keys import SENTINEL
 
@@ -60,18 +61,20 @@ def count_kmers_device(keys: torch.Tensor, min_coverage, capacity: int,
     dev = keys.device
     if m == 0:
         return _empty(capacity, dev)
-    s = torch.sort(keys).values if sorter is None else sorter(keys)
-    (run_keys,), starts, n_runs, overflow = compact_flagged(
-        _run_heads(s), (s,), capacity, site="count_heads")
-    ridx = torch.arange(capacity, device=dev)
-    in_range = ridx < n_runs
-    ends = torch.cat([starts[1:], starts.new_full((1,), m)])
-    ends = torch.where(ridx + 1 < n_runs, ends, m)
-    counts = torch.where(in_range, ends - starts, 0)
-    run_keys = torch.where(in_range, run_keys, 0)
-    valid = in_range & (run_keys != SENTINEL) & (counts >= min_coverage)
-    table, out_counts, n_unique = _dense_prefix(
-        valid, run_keys, counts, capacity, "count_filter")
+    with span("count.sort", device=dev):
+        s = torch.sort(keys).values if sorter is None else sorter(keys)
+    with span("count.runs", device=dev):
+        (run_keys,), starts, n_runs, overflow = compact_flagged(
+            _run_heads(s), (s,), capacity, site="count_heads")
+        ridx = torch.arange(capacity, device=dev)
+        in_range = ridx < n_runs
+        ends = torch.cat([starts[1:], starts.new_full((1,), m)])
+        ends = torch.where(ridx + 1 < n_runs, ends, m)
+        counts = torch.where(in_range, ends - starts, 0)
+        run_keys = torch.where(in_range, run_keys, 0)
+        valid = in_range & (run_keys != SENTINEL) & (counts >= min_coverage)
+        table, out_counts, n_unique = _dense_prefix(
+            valid, run_keys, counts, capacity, "count_filter")
     return dict(table=table, counts=out_counts, n_unique=n_unique,
                 overflow=overflow)
 

@@ -9,15 +9,21 @@ On a machine with the card:
 imports nothing of JAX, so the lane needs only torch there.
 """
 
+import collections
+import json
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
-from genome_tpu_torch.assemble import pipeline
+from genome_tpu_torch.assemble import cli, pipeline
+from genome_tpu_torch.assemble.metrics import Metrics
 from genome_tpu_torch.assemble.pipeline import extract_stream, run_pipeline
 from genome_tpu_torch.io import random_genome, simulate_reads
 from genome_tpu_torch.kernels import bitonic, compact, hist, partition
-from genome_tpu_torch.kernels.extract import extract_canonical_kmers
+from genome_tpu_torch.kernels.extract import (extract_canonical_kmers,
+                                              pack_reads)
 from genome_tpu_torch.kernels.keys import SENTINEL
 from genome_tpu_torch.kernels.mergesort import sort_pairs_merge
 from genome_tpu_torch.params import AssemblyParams
@@ -483,3 +489,113 @@ def test_sort_pairs_merge_on_card_equals_torch_sort(cuda_device):
     got = sort_pairs_merge(keys, block=4096)
     assert torch.equal(got, torch.sort(keys).values)
     assert dict(bitonic.LAUNCHES) == {"sort_blocks": 1, "merge_blocks": 4}
+
+
+def _sim3kb():
+    return simulate_reads(random_genome(3000, seed=123), read_len=100,
+                          coverage=25, error_rate=0.01, seed=7)
+
+
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_DEVICE_CALLS = ("cudaLaunchKernel", "cudaMemcpy", "cudaMemset",
+                 "cuLaunchKernel", "cuMemcpy", "cuMemset")
+
+
+@pytest.mark.cuda
+def test_profile_keeps_the_first_device_records(cuda_device, tmp_path):
+    """`--profile` opens its session with a prologue: the trace holds the
+    device record of every compaction launch of the job, the first one
+    included, of every device call inside the block, and the spans'
+    annotations."""
+    fq = tmp_path / "r.fastq"
+    fq.write_text("".join(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n"
+                          for i, r in enumerate(_sim3kb())))
+    compact.reset_launches()
+    assert cli.main([str(fq), "-o", str(tmp_path / "c.fasta"), "--quiet",
+                     "--profile", str(tmp_path / "prof")]) == 0
+    launches = sum(compact.LAUNCHES.values())
+    with open(tmp_path / "prof" / "trace.json") as f:
+        ev = json.load(f)["traceEvents"]
+    tiles = [e for e in ev if e.get("cat") == "kernel"
+             and e["name"].startswith("compact_tiles")]
+    assert launches > 0 and len(tiles) == launches
+    block = next(e for e in ev if e.get("cat") == "user_annotation"
+                 and e["name"] == pipeline.PROFILE_ANNOTATION)
+    device = {e["args"]["correlation"] for e in ev
+              if e.get("cat") in _DEVICE_CATS}
+    calls = sorted((e for e in ev
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and e["name"].startswith(_DEVICE_CALLS)
+                    and block["ts"] <= e["ts"] <= block["ts"] + block["dur"]),
+                   key=lambda e: e["ts"])
+    lost = [e["name"] for e in calls
+            if e["args"].get("correlation") not in device]
+    assert calls and not lost
+    names = {e["name"] for e in ev if e.get("cat") == "user_annotation"}
+    assert {"count.sort", "count.extract", "emit.strings"} <= names
+
+
+@pytest.mark.cuda
+def test_device_spans_and_upload_bytes_on_card(cuda_device):
+    """The count's device spans read their device time, within the count
+    phase's wall; h2d_bytes is the packed upload; the contigs are the
+    CPU's."""
+    reads = _sim3kb()
+    codes = pack_reads(reads)
+    params = AssemblyParams(k=21, min_coverage=2)
+    run_pipeline(codes, params, device=cuda_device)  # builds and warms up
+    m = Metrics(quiet=True)
+    got = run_pipeline(codes, params, metrics=m, device=cuda_device)
+    assert got["contigs"] == run_pipeline(codes, params,
+                                          device="cpu")["contigs"]
+    spans = {e["name"]: e for e in m.events if e["event"] == "span"}
+    ends = {e["phase"]: e for e in m.events if e["event"] == "phase_end"}
+    device_ms = [spans[n]["device_ms"]
+                 for n in ("count.extract", "count.sort", "count.runs")]
+    assert all(d is not None and d > 0 for d in device_ms)
+    assert sum(device_ms) <= 1e3 * ends["count"]["wall_s"]
+    R, L = codes.shape
+    assert ends["count"]["h2d_bytes"] == R * -(-L // 4)
+    assert sum(e["h2d_bytes"] for e in ends.values()) == R * -(-L // 4)
+
+
+@pytest.mark.cuda
+def test_host_syncs_match_the_sync_debug_warnings(cuda_device, monkeypatch):
+    """Under torch.cuda.set_sync_debug_mode("warn") every synchronizing
+    operation of a job warns. Each host read is counted in the job's
+    `syncs`; the explicit torch.cuda.synchronize() after the build and
+    after the final state is counted there too but does not warn. The one
+    implicit sync is not a read: graph/simplify.py::_set_drop writing a
+    Python scalar into a CUDA tensor copies the scalar from pageable host
+    memory and waits for it (one a kill pass, two a degree update, one a
+    bubble doom), so the test counts those calls itself."""
+    from genome_tpu_torch.graph import simplify as graph_simplify
+    codes = pack_reads(_sim3kb())
+    params = AssemblyParams(k=21, min_coverage=2)
+    run_pipeline(codes, params, device=cuda_device)  # builds and warms up
+    scalar_writes = []
+    set_drop = graph_simplify._set_drop
+
+    def spy(x, idx, val):
+        if not torch.is_tensor(val):
+            scalar_writes.append(val)
+        return set_drop(x, idx, val)
+    monkeypatch.setattr(graph_simplify, "_set_drop", spy)
+    m = Metrics(quiet=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run_pipeline(codes, params, metrics=m, device=cuda_device)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    warned = [str(w.message) for w in caught
+              if str(w.message).startswith("called a synchronizing")]
+    ends = [e for e in m.events if e["event"] == "phase_end"]
+    sites = collections.Counter()
+    for e in ends:
+        sites.update(e["sync_sites"])
+    explicit = sites["build.sync"] + sites["final.sync"]
+    assert explicit == 2 and scalar_writes
+    assert len(warned) == (sum(e["syncs"] for e in ends) - explicit
+                           + len(scalar_writes)), dict(sites)

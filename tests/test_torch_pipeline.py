@@ -155,7 +155,8 @@ def test_cli_io_native_and_python_give_golden(tmp_path, io):
     assert cli.main(argv + ["--io", io]) == 0
     assert read_fastx(out) == assemble_golden(reads[:half] + short, params)
     ev = [json.loads(x) for x in m.read_text().splitlines()]
-    read_input = next(e for e in ev if e.get("phase") == "read_input")
+    read_input = next(e for e in ev if e.get("phase") == "read_input"
+                      and e["event"] == "phase_end")
     assert read_input["n_reads"] == len(reads)
     assert read_input["total_bp"] == sum(map(len, reads[:half] + short))
 
