@@ -20,7 +20,9 @@ without a `metrics` argument:
   counters, which its `phase_end` carries as fields: `syncs` (host reads
   of device data), `sync_wait_s` (host seconds blocked in them),
   `retries` (work redone after an overflow or taken by a fallback),
-  `h2d_bytes` (host-to-device copies) and `sync_sites` (reads by site).
+  `h2d_bytes` (host-to-device copies) and `sync_sites` (reads by site);
+  the emission adds `d2h_bytes` (its copies to the host) and
+  `contigs_reversed` (contigs it wrote reverse-complemented).
 
 With no current Metrics a span is only the profiler range (its `wall_s`
 is still set: it times the block either way), and counters are dropped.

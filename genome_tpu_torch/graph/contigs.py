@@ -5,9 +5,10 @@ Port of genome_tpu/graph/contigs.py. Two paths with identical output:
   reference the tests hold the device path to.
 - emit_contigs_device (the pipeline's path): orders the selected nodes on
   the device with one int64 sort on head * n2 + dist, compacts the contig
-  starts with the stream compactor, packs the per-node last bases 16 per
-  int64 word, and moves only that stream plus one (start, head k-mer)
-  record per contig to the host.
+  starts with the stream compactor, writes every contig's canonical
+  sequence as ASCII into one byte buffer, and moves that buffer plus one
+  (offset, length, reversed) record per contig to the host, which only
+  slices and sorts.
 """
 
 from __future__ import annotations
@@ -63,11 +64,10 @@ def emit_contigs(final_state, okv, k: int, min_contig_len: int = 0,
     return _assemble(starts, ends, vv[starts], last, k, min_contig_len)
 
 
-def _chain_order_device(head, dist, primary, alive_o, okv,
-                        node_primary: bool):
-    """Device side of emit_contigs_device. Returns (words [ceil(n2/16)]
-    int64 holding 16 packed bases each, in chain order; the sorted head of
-    each slot; the contig-start flags; n_sel)."""
+def _chain_order_device(head, dist, primary, alive_o, node_primary: bool):
+    """Device side of emit_contigs_device, up to the counts. Returns (the
+    slot order of the selected nodes, each chain's nodes together by head
+    and in chain order; the contig-start flags; n_sel)."""
     n2 = head.shape[0]
     dev = head.device
     if not node_primary:
@@ -81,31 +81,73 @@ def _chain_order_device(head, dist, primary, alive_o, okv,
     first = torch.ones(n2, dtype=torch.bool, device=dev)
     first[1:] = hs[1:] != hs[:-1]
     first &= torch.arange(n2, device=dev) < n_sel
-    bases = okv[order] & 3
-    bases = torch.cat([bases, bases.new_zeros(-n2 % 16)])
-    shifts = 2 * torch.arange(16, dtype=torch.int64, device=dev)
-    words = (bases.reshape(-1, 16) << shifts).sum(dim=1)
-    return words, hs, first, n_sel
+    return order, first, n_sel
+
+
+# "ACGT" as one little-endian word: byte c is code c's ASCII letter
+_ACGT_WORD = int.from_bytes(b"ACGT", "little")
+
+
+def _canonical_bytes(okv, order, starts, n_sel: int, n_contigs: int, k: int):
+    """Each contig's canonical sequence as ASCII, in one byte buffer.
+
+    Contig i holds slots [s_i, e_i) of `order`; its L_i = e_i - s_i + k - 1
+    bases lie at offset o_i = s_i + i (k - 1). Base j is base j of the
+    first node's k-mer for j < k, else the last base of slot
+    s_i + j - k + 1: what _assemble concatenates. The contig is written
+    reverse-complemented iff, at its first j with f[j] != 3 - f[L_i-1-j],
+    the reverse complement's base is smaller: min(seq, revcomp(seq)), as
+    A < C < G < T in codes and in ASCII. Returns (bytes [n_out] uint8,
+    meta [3, n_contigs] int64: offsets, lengths, reversed)."""
+    dev = okv.device
+    s = starts[:n_contigs].to(torch.int64)
+    ids = torch.arange(n_contigs, device=dev)
+    lens = torch.cat([s[1:], s.new_full((1,), n_sel)]) - s + (k - 1)
+    offs = s + ids * (k - 1)
+    n_out = n_sel + n_contigs * (k - 1)
+    cid = torch.repeat_interleave(ids, lens, output_size=n_out)
+    j = torch.arange(n_out, device=dev) - offs[cid]
+    # base j < k - 1 of the first k-mer, else the last base of its node
+    back = (k - 1 - j).clamp_(min=0)
+    src = s[cid] + (j - (k - 1)).clamp_(min=0)
+    f = ((okv[order[src]] >> (2 * back)) & 3).to(torch.uint8)
+    del back, src
+    mirror = offs[cid] + lens[cid] - 1 - j
+    rc = 3 - f[mirror]
+    del mirror
+    # first forward/reverse mismatch of each contig (lens: none, a palindrome)
+    miss = lens.scatter_reduce(0, cid, torch.where(f != rc, j, lens[cid]),
+                               "amin")
+    at = offs + torch.minimum(miss, lens - 1)
+    rev = (miss < lens) & (rc[at] < f[at])
+    out = torch.where(rev[cid], rc, f).to(torch.int32)
+    buf = ((_ACGT_WORD >> (out << 3)) & 255).to(torch.uint8)
+    return buf, torch.stack([offs, lens, rev.to(torch.int64)])
 
 
 def emit_contigs_device(final_state, okv, k: int, min_contig_len: int = 0,
                         node_primary: bool = False,
                         contig_cap: int | None = None) -> list[str]:
-    """emit_contigs with the ordering, start compaction and base packing
-    done on the device; identical output.
+    """emit_contigs with the ordering, start compaction and each contig's
+    canonical orientation done on the device, which writes every contig's
+    ASCII bases into one buffer; the host slices and sorts. Identical
+    output.
 
     node_primary: as emit_contigs's.
     contig_cap: size of the contig-start buffer, default max(4096,
     n2 / 64). The compaction's total is exact, so an overflow is redone
-    once at exactly the size needed."""
+    once at exactly the size needed.
+    Counters: `d2h_bytes`, the bytes of the two copies; `contigs_reversed`,
+    the contigs written reverse-complemented (min_contig_len not yet
+    applied)."""
     head = final_state["head"]
     n2 = head.shape[0]
     if n2 == 0:
         return []
     with span("emit.device"):
-        words, hs, first, n_sel = _chain_order_device(
+        order, first, n_sel = _chain_order_device(
             head, final_state["dist"], final_state["primary"],
-            final_state["alive_o"], okv, node_primary)
+            final_state["alive_o"], node_primary)
         cap = contig_cap or max(4096, n2 >> 6)
         starts, n_contigs, _ = compact_ids(first, cap, site="contig_starts")
         n_sel, n_contigs = host_read("emit.counts", torch.stack(
@@ -115,16 +157,14 @@ def emit_contigs_device(final_state, okv, k: int, min_contig_len: int = 0,
             starts, _, _ = compact_ids(first, n_contigs, site="contig_starts")
         if n_contigs == 0:
             return []
-        starts = starts[:n_contigs]
-        first_kmers = okv[hs[starts]]
+        buf, meta = _canonical_bytes(okv, order, starts, n_sel, n_contigs, k)
     with span("emit.copy"):
-        words = host_read("emit.bases", lambda: _host(
-            words[: -(-n_sel // 16)]))
-        meta = host_read("emit.starts", lambda: _host(
-            torch.stack([starts, first_kmers])))
+        buf = host_read("emit.bases", lambda: _host(buf))
+        offs, lens, rev = host_read("emit.meta", lambda: _host(meta))
+        count("d2h_bytes", buf.nbytes + 8 * meta.numel())
+        count("contigs_reversed", int(rev.sum()))
     with span("emit.strings"):
-        codes = ((words[:, None] >> (2 * np.arange(16, dtype=np.int64)))
-                 & 3).astype(np.uint8).reshape(-1)
-        starts = meta[0]
-        ends = np.concatenate([starts[1:], [n_sel]])
-        return _assemble(starts, ends, meta[1], codes, k, min_contig_len)
+        text = buf.tobytes().decode("ascii")
+        return sorted([text[o:o + n] for o, n in zip(offs.tolist(),
+                                                     lens.tolist())
+                       if n >= min_contig_len])

@@ -599,3 +599,54 @@ def test_host_syncs_match_the_sync_debug_warnings(cuda_device, monkeypatch):
     assert explicit == 2 and scalar_writes
     assert len(warned) == (sum(e["syncs"] for e in ends) - explicit
                            + len(scalar_writes)), dict(sites)
+
+
+@pytest.mark.cuda
+def test_emission_canonical_bytes_on_card_equal_host(cuda_device):
+    """emit_contigs_device on the card equals emit_contigs on the host on a
+    random chain state of 2,000,003 nodes at k = 31 in 3,000 chains (some
+    nodes dead, some heads not primary); its phase reads the device three
+    times (the counts, the bytes, the meta stack) and synchronizes nowhere
+    else; d2h_bytes is those two copies."""
+    from genome_tpu_torch.graph.contigs import (emit_contigs,
+                                                emit_contigs_device)
+    rng = np.random.default_rng(31)
+    n2, n_chains, k = 2_000_003, 3000, 31
+    perm = rng.permutation(n2)
+    bounds = np.sort(rng.choice(np.arange(1, n2), n_chains - 1,
+                                replace=False))
+    chain = np.zeros(n2, np.int64)
+    chain[bounds] = 1
+    chain = np.cumsum(chain)               # chain of each slot of perm
+    first = np.concatenate([[0], bounds])  # first slot of each chain
+    head = np.empty(n2, np.int32)
+    dist = np.empty(n2, np.int32)
+    head[perm] = perm[first[chain]]
+    dist[perm] = np.arange(n2) - first[chain]
+    primary = rng.random(n2) < 0.9
+    alive_o = rng.random(n2) < 0.999
+    okv = rng.integers(0, 1 << (2 * k), n2, dtype=np.int64)
+    fs = dict(head=head, dist=dist, primary=primary, alive_o=alive_o)
+    want = emit_contigs({n: torch.from_numpy(v) for n, v in fs.items()},
+                        torch.from_numpy(okv), k)
+    dfs = {n: torch.from_numpy(v).to(cuda_device) for n, v in fs.items()}
+    dokv = torch.from_numpy(okv).to(cuda_device)
+    emit_contigs_device(dfs, dokv, k)  # warm up
+    torch.cuda.synchronize()
+    m = Metrics(quiet=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with m.phase("contigs"):
+                got = emit_contigs_device(dfs, dokv, k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert got == want and len(want) > 2000
+    end = next(e for e in m.events if e["event"] == "phase_end")
+    assert end["syncs"] == 3 and sum(end["sync_sites"].values()) == 3
+    warned = [w for w in caught
+              if str(w.message).startswith("called a synchronizing")]
+    assert len(warned) == 3
+    assert end["d2h_bytes"] == sum(map(len, want)) + 24 * len(want)
+    assert 0 < end["contigs_reversed"] < len(want)

@@ -352,3 +352,80 @@ def test_emission_ragged_node_count_equals_host(cap):
     want = emit_contigs(fs, okv, 9)
     assert len(want) == 3
     assert emit_contigs_device(fs, okv, 9, contig_cap=cap) == want
+
+
+def _chain_state(seqs, primary, k, n2, rng, node_primary=False):
+    """A final chain state holding each sequence as one chain of k-mers
+    (node m: seq[m : m + k], dist m), at random node ids among n2 (the
+    rest dead); primary[i] flags sequence i's head, or each of its nodes
+    when node_primary."""
+    from genome_tpu_torch.utils import dna
+    ids = iter(rng.permutation(n2))
+    head = np.full(n2, -1, np.int32)
+    dist = np.zeros(n2, np.int32)
+    prim = np.zeros(n2, bool)
+    okv = rng.integers(0, 1 << (2 * k), n2, dtype=np.int64)
+    for seq, p in zip(seqs, primary):
+        nodes = [next(ids) for _ in range(len(seq) - k + 1)]
+        head[nodes], dist[nodes] = nodes[0], np.arange(len(nodes))
+        okv[nodes] = [dna.str_to_kmer(seq[m : m + k])
+                      for m in range(len(nodes))]
+        prim[nodes if node_primary else nodes[0]] = p
+    return dict(head=torch.from_numpy(head), dist=torch.from_numpy(dist),
+                primary=torch.from_numpy(prim),
+                alive_o=torch.from_numpy(head >= 0)), torch.from_numpy(okv)
+
+
+# (k, special sequences, emit_contigs_device keywords); random sequences of
+# 5-40 bases join each case, and "empty" flags no head primary
+_EMIT_CASES = {
+    "revcomp_smaller": (5, ["TTTTTACG", "GGGTTTTT"], {}),
+    "even_palindrome": (5, ["AACCGGTT", "GAATTC" * 2, "ACGCGT"], {}),
+    # mirrored outside, first mismatch at j = 9 > k: forward, then reversed
+    "mismatch_past_k": (5, ["AAACCCGGTGAACCGGGTTT", "AAACCCGGTTCACCGGGTTT"],
+                        {}),
+    "single_node": (7, ["TTTACGA", "ACGTACG", "GATCGAT"], {}),
+    "min_contig_len": (5, ["TTTTTT", "ACGTAC" * 4], {"min_contig_len": 12}),
+    "node_primary": (5, ["TTTTTACG", "AACCGGTT"], {"node_primary": True}),
+    "exact_retry": (5, ["TTTTTACG", "AACCGGTT"], {"contig_cap": 1}),
+    "empty": (5, ["TTTTTACG"], {}),
+}
+
+
+@pytest.mark.parametrize("case", list(_EMIT_CASES))
+def test_emission_canonical_bytes_equal_host(case):
+    """The device emission's canonical bytes give the host emission's
+    contigs on hand-built chain states: a smaller reverse complement, even
+    palindromes (written forward), a first forward/reverse mismatch past k,
+    single-node contigs, min_contig_len dropping some, per-node primary
+    flags, the exact retry and an empty selection. contigs_reversed counts
+    the contigs whose reverse complement is smaller, and d2h_bytes the
+    bytes copied: every selected contig's bases and 3 int64 a contig."""
+    from genome_tpu_torch.assemble.metrics import Metrics
+    from genome_tpu_torch.graph.contigs import (emit_contigs,
+                                                emit_contigs_device)
+    from genome_tpu_torch.utils import dna
+    k, special, kw = _EMIT_CASES[case]
+    rng = np.random.default_rng(len(case))
+    seqs = special + ["".join(rng.choice(list("ACGT"), rng.integers(5, 41)))
+                      for _ in range(6)]
+    seqs = [s for s in seqs if len(s) >= k]
+    primary = [case != "empty" and i % 7 != 6 for i in range(len(seqs))]
+    fs, okv = _chain_state(seqs, primary, k, 300, rng,
+                           kw.get("node_primary", False))
+    chosen = [s for s, p in zip(seqs, primary) if p]
+    ml = kw.get("min_contig_len", 0)
+    want = sorted(min(s, dna.revcomp_str(s)) for s in chosen if len(s) >= ml)
+    assert emit_contigs(fs, okv, k, ml, kw.get("node_primary", False)) == want
+    m = Metrics(quiet=True)
+    with m.phase("contigs"):
+        got = emit_contigs_device(fs, okv, k, **kw)
+    assert got == want
+    assert (case == "empty") == (not want)
+    if case == "min_contig_len":
+        assert len(want) < len(chosen)
+    end = next(e for e in m.events if e["event"] == "phase_end")
+    assert end.get("contigs_reversed", 0) == sum(
+        dna.revcomp_str(s) < s for s in chosen)
+    assert end.get("d2h_bytes", 0) == sum(map(len, chosen)) + 24 * len(chosen)
+    assert end["syncs"] <= 3
