@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from genome_tpu_torch.assemble.metrics import Metrics
+from genome_tpu_torch.assemble.metrics import Metrics, count
 from genome_tpu_torch.assemble.pipeline import (_pow2_at_least,
                                                 extract_stream,
                                                 simplify_with_metrics)
@@ -68,6 +68,7 @@ def count_with_retry(stream: torch.Tensor, min_coverage: int,
             break
         bucket_cap *= 2
         local_cap *= 2
+        count("retries")
         metrics.log("dist_capacity_overflow", bucket_cap=bucket_cap,
                     local_cap=local_cap)
     n_unique = int(res["n_unique"])
@@ -90,6 +91,7 @@ def build_with_retry(table: torch.Tensor, n_unique: int, k: int,
         if not ovf:
             return succ, okv, query_cap
         query_cap *= 2
+        count("retries")
         metrics.log("dist_query_overflow", query_cap=query_cap)
 
 

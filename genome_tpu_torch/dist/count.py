@@ -58,6 +58,7 @@ def route_buckets(vals: tuple, owner: torch.Tensor, num_shards: int,
                        n_slots)
     send_pos = torch.empty(m, dtype=torch.int32, device=dev)
     send_pos[sidx] = torch.where(dest < n_slots, dest, -1).to(torch.int32)
+    del so, pos  # the route's temporaries go before its buffers come
     # slot n_slots of each row is the drop slot
     dtype = vals[0].dtype
     buf = torch.full((len(vals), n_slots + 1),
@@ -65,6 +66,7 @@ def route_buckets(vals: tuple, owner: torch.Tensor, num_shards: int,
                      dtype=dtype, device=dev)
     for j, v in enumerate(vals):
         buf[j, dest] = v[sidx]
+    del sidx, dest
     stacked = buf[:, :n_slots].reshape(len(vals), S, bucket_cap)
     stacked = stacked.permute(1, 0, 2).reshape(S, len(vals) * bucket_cap)
     out = all_to_all_rows(stacked, group)
@@ -91,6 +93,7 @@ def sharded_count(keys: torch.Tensor, min_coverage, bucket_cap: int,
     own = torch.where(keys != SENTINEL, owner_of(keys, S), S)
     (received,), _, ovf_route = route_buckets((keys,), own, S, bucket_cap,
                                               group, ledger)
+    del own  # not held through the count's sort
     res = count_kmers_device(received, min_coverage, local_capacity)
     res["overflow"] = all_any(bool(ovf_route | res["overflow"]), group)
     return res

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from genome_tpu_torch.assemble.metrics import count
 from genome_tpu_torch.dist.count import EMPTY32, route_buckets
 from genome_tpu_torch.dist.ledger import ExchangeLedger
 from genome_tpu_torch.dist.mesh import (all_any_each, all_gather_rows,
@@ -173,6 +174,7 @@ def emit_contigs_sharded(head, dist_, primary, alive_o, okv, k: int,
             ledger.invoke("dist_emit")
         if not all_any_each([out[-1]], group)[0]:
             break
+        count("retries")
         ecap *= 2
         block_cap *= 2
         head_cap *= 2

@@ -7,6 +7,14 @@ every rank of the group calls it, in the same order. Host decisions that
 JAX took from a gathered array (an overflow retry, a table size) go
 through all_max / all_any, so that every rank takes the same branch.
 
+Each collective is counted in the current phase (assemble/metrics.py):
+`collectives` counts every call, the agreements included; an exchange
+of rows (all_to_all_rows, all_gather_rows) is also a device span
+`dist.exchange`, whose device time includes the wait for the slowest
+rank, and adds the bytes that leave this rank, (S - 1)/S of its output
+buffer, to `exchange_bytes`; the agreements' host reads go through
+host_read, so `syncs` counts them.
+
 run_local starts a whole group of ranks on this host, the counterpart of
 the JAX package's fake cluster (multihost.py, tests/conftest.py).
 """
@@ -23,6 +31,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from genome_tpu_torch.assemble.metrics import count, host_read, span
 from genome_tpu_torch.utils.device import resolve_device
 
 
@@ -85,15 +94,26 @@ def all_to_all_rows(buf: torch.Tensor, group=None) -> torch.Tensor:
                          f"{dist.get_world_size(group)}")
     buf = buf.contiguous()
     out = torch.empty_like(buf)
-    dist.all_to_all_single(out, buf, group=group)
+    with _exchange(out.numel() * out.element_size(), out.device, group):
+        dist.all_to_all_single(out, buf, group=group)
     return out
+
+
+def _exchange(out_bytes: int, device: torch.device, group):
+    """The span and counters of one exchange into an output buffer of
+    `out_bytes` bytes."""
+    S = dist.get_world_size(group)
+    count("collectives")
+    count("exchange_bytes", out_bytes * (S - 1) // S)
+    return span("dist.exchange", device=device)
 
 
 def all_max(x: int, group=None) -> int:
     """The largest of every rank's host integer."""
     t = torch.tensor([int(x)], dtype=torch.int64, device=group_device(group))
+    count("collectives")
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-    return int(t.item())
+    return host_read("dist.all_max", lambda: int(t.item()))
 
 
 def all_any(flag, group=None) -> bool:
@@ -107,16 +127,19 @@ def all_any_each(flags, group=None) -> list[bool]:
     dev = group_device(group)
     t = torch.stack([torch.as_tensor(f, device=dev).reshape(())
                      .to(torch.int64) for f in flags])
+    count("collectives")
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-    return [v > 0 for v in t.tolist()]
+    return [v > 0 for v in host_read("dist.all_any_each", t.tolist)]
 
 
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's x (equal shapes), concatenated along dim 0 in rank
     order."""
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
+    S = dist.get_world_size(group)
+    parts = [torch.empty_like(x) for _ in range(S)]
+    with _exchange(S * x.numel() * x.element_size(), x.device, group):
+        dist.all_gather(parts, x, group=group)
     return torch.cat(parts)
 
 

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from genome_tpu_torch.assemble.metrics import Metrics
+from genome_tpu_torch.assemble.metrics import Metrics, count
 from genome_tpu_torch.assemble.pipeline import (extract_stream,
                                                 simplify_with_metrics)
 from genome_tpu_torch.dist.assemble import build_with_retry, count_with_retry
@@ -90,7 +90,7 @@ def assemble_multihost(local_reads, params: AssemblyParams | None = None,
                        forbid_replicated: bool = False,
                        phase_times: dict | None = None, ckpt=None,
                        out_path: str | None = None, group=None,
-                       device="cuda"):
+                       metrics: Metrics | None = None, device="cuda"):
     """SPMD entry: every rank of the group passes its own reads (a list of
     strings or a uint8 code matrix) and gets the full sorted contig list.
 
@@ -103,6 +103,13 @@ def assemble_multihost(local_reads, params: AssemblyParams | None = None,
     phase_times: filled with wall seconds per phase (extract, count,
     build, simplify, final, emit, write) and, on the sharded path, the
     call's exchange ledger with the fast final's rounds.
+    metrics: this rank's Metrics. The call runs in assemble_sharded's
+    phases (dist_extract, dist_count, dist_build, dist_simplify_sharded,
+    dist_final_sharded, dist_contigs; dist_simplify on the escape), so
+    the spans and counters below them land there: the exchanges'
+    `dist.exchange` spans, `exchange_bytes` and `collectives` (dist/
+    mesh.py), `retries` (each capacity, query, slack-ladder or emission
+    redo) and `escapes` (each gathered or replicated fallback taken).
     ckpt: a PhaseCheckpointer of this rank's shard. Each rank saves its
     part of the count, build and simplify artifacts; on a restart a
     phase is skipped only when every rank holds a matching artifact, and
@@ -111,12 +118,12 @@ def assemble_multihost(local_reads, params: AssemblyParams | None = None,
     that rank (code 7) right after the phase's artifact is saved.
     `device` is the rank's device and must match the group's backend."""
     params = params or AssemblyParams()
+    metrics = metrics or Metrics(quiet=True)
     pt = phase_times if phase_times is not None else {}
     dev = resolve_device(device)
     check_device(dev, group)
     S, rank = dist.get_world_size(group), dist.get_rank(group)
     ledger = ExchangeLedger()
-    events = Metrics(quiet=True)  # the retries' and the final's events
 
     def mark(name, t0):
         pt[name] = pt.get(name, 0.0) + (time.perf_counter() - t0)
@@ -128,102 +135,131 @@ def assemble_multihost(local_reads, params: AssemblyParams | None = None,
         return np.asarray([cap], np.int64)
 
     # count (a resumed count skips the extraction too: its only consumer)
-    ck = ckpt.load("dist_count") if ckpt is not None else None
-    count_resumed = _agreed(ck is not None, group)
-    if count_resumed:
-        local_cap = int(ck["meta"][0])
-        table, counts = load("table", ck), load("counts", ck)
-        n_unique = int(ck["n_unique"][0])
-    else:
-        t0 = time.perf_counter()
-        stream = extract_stream(local_reads, params.k, dev)
-        m = all_max(max(stream.numel(), 1), group)
-        stream = torch.cat([stream, stream.new_full(
-            (m - stream.numel(),), SENTINEL)])
-        mark("extract", t0)
-        t0 = time.perf_counter()
-        table, counts, n_unique, local_cap = count_with_retry(
-            stream, params.min_coverage, local_capacity, group, ledger,
-            events)
-        del stream
-        mark("count", t0)
-        if ckpt is not None:
-            ckpt.save("dist_count", table=table, counts=counts,
-                      n_unique=np.asarray([n_unique], np.int64),
-                      meta=meta(local_cap))
-            _crash_hook("dist_count", rank)
+    with metrics.phase("dist_extract") as info:
+        ck = ckpt.load("dist_count") if ckpt is not None else None
+        count_resumed = _agreed(ck is not None, group)
+        if not count_resumed:
+            t0 = time.perf_counter()
+            stream = extract_stream(local_reads, params.k, dev)
+            m = all_max(max(stream.numel(), 1), group)
+            if m > stream.numel():
+                stream = torch.cat([stream, stream.new_full(
+                    (m - stream.numel(),), SENTINEL)])
+            info["windows"] = S * m
+            mark("extract", t0)
+    with metrics.phase("dist_count") as info:
+        if count_resumed:
+            local_cap = int(ck["meta"][0])
+            table, counts = load("table", ck), load("counts", ck)
+            n_unique = int(ck["n_unique"][0])
+        else:
+            t0 = time.perf_counter()
+            table, counts, n_unique, local_cap = count_with_retry(
+                stream, params.min_coverage, local_capacity, group, ledger,
+                metrics)
+            del stream
+            mark("count", t0)
+            if ckpt is not None:
+                ckpt.save("dist_count", table=table, counts=counts,
+                          n_unique=np.asarray([n_unique], np.int64),
+                          meta=meta(local_cap))
+                _crash_hook("dist_count", rank)
+        info["n_unique"] = n_unique
+        info["local_cap"] = local_cap
 
     # build (resumes only on a resumed count: only then is the table
     # layout known to match the saved one)
-    ck = (ckpt.load("dist_build")
-          if ckpt is not None and count_resumed else None)
-    build_resumed = _agreed(
-        ck is not None and int(ck["meta"][0]) == local_cap, group)
-    if build_resumed:
-        succ, okv = load("succ", ck), load("okv", ck)
-    else:
-        t0 = time.perf_counter()
-        succ, okv, _ = build_with_retry(table, n_unique, params.k, local_cap,
-                                        group, ledger, events)
-        mark("build", t0)
-        if ckpt is not None:
-            ckpt.save("dist_build", succ=succ, okv=okv, meta=meta(local_cap))
-            _crash_hook("dist_build", rank)
-    del table
+    with metrics.phase("dist_build") as info:
+        ck = (ckpt.load("dist_build")
+              if ckpt is not None and count_resumed else None)
+        build_resumed = _agreed(
+            ck is not None and int(ck["meta"][0]) == local_cap, group)
+        if build_resumed:
+            succ, okv = load("succ", ck), load("okv", ck)
+        else:
+            t0 = time.perf_counter()
+            succ, okv, info["query_cap"] = build_with_retry(
+                table, n_unique, params.k, local_cap, group, ledger, metrics)
+            mark("build", t0)
+            if ckpt is not None:
+                ckpt.save("dist_build", succ=succ, okv=okv,
+                          meta=meta(local_cap))
+                _crash_hook("dist_build", rank)
+        del table
 
     # sharded tip and bubble passes
-    ck = (ckpt.load("dist_simplify")
-          if ckpt is not None and build_resumed else None)
-    if _agreed(ck is not None and int(ck["meta"][0]) == local_cap, group):
-        alive_sh, ovf_s = load("alive", ck), False
-    else:
-        t0 = time.perf_counter()
-        alive_sh, ovf_s = simplify_sharded(
-            succ, okv, counts,
-            torch.ones(local_cap, dtype=torch.bool, device=dev), n_unique,
-            params, group, ledger)
-        mark("simplify", t0)
-        if ckpt is not None and not ovf_s:
-            ckpt.save("dist_simplify", alive=alive_sh, meta=meta(local_cap))
-            _crash_hook("dist_simplify", rank)
+    with metrics.phase("dist_simplify_sharded") as info:
+        ck = (ckpt.load("dist_simplify")
+              if ckpt is not None and build_resumed else None)
+        if _agreed(ck is not None and int(ck["meta"][0]) == local_cap,
+                   group):
+            alive_sh, ovf_s = load("alive", ck), False
+        else:
+            t0 = time.perf_counter()
+            alive_sh, ovf_s = simplify_sharded(
+                succ, okv, counts,
+                torch.ones(local_cap, dtype=torch.bool, device=dev),
+                n_unique, params, group, ledger)
+            mark("simplify", t0)
+            if ckpt is not None and not ovf_s:
+                ckpt.save("dist_simplify", alive=alive_sh,
+                          meta=meta(local_cap))
+                _crash_hook("dist_simplify", rank)
+        info["overflow"] = ovf_s
+        count("escapes", int(ovf_s))
+        if ovf_s:
+            metrics.log("dist_simplify_overflow_fallback")
 
     if not ovf_s:
         # sharded final state; only the emission's fixed-capacity outputs
         # are gathered
-        t0 = time.perf_counter()
-        head, dist_, primary, alive_o, f_ovf = final_state_sharded(
-            succ, okv, counts, alive_sh, n_unique, group, events, ledger)
-        mark("final", t0)
+        n_events = len(metrics.events)
+        with metrics.phase("dist_final_sharded") as info:
+            t0 = time.perf_counter()
+            head, dist_, primary, alive_o, f_ovf = final_state_sharded(
+                succ, okv, counts, alive_sh, n_unique, group, metrics,
+                ledger)
+            mark("final", t0)
+            info["overflow"] = f_ovf
+            count("escapes", int(f_ovf))
+            if f_ovf:
+                metrics.log("dist_final_overflow_fallback")
         if not f_ovf:
-            # with out_path each rank decodes only its 1/P contig slice
-            t0 = time.perf_counter()
-            contigs, ok = emit_contigs_sharded(
-                head, dist_, primary, alive_o, okv, params.k,
-                params.min_contig_len, group, ledger,
-                local_slice=(rank, S) if out_path is not None else None)
-            if not ok:
-                fs = dict(head=all_gather_rows(head, group),
-                          dist=all_gather_rows(dist_, group),
-                          primary=all_gather_rows(primary, group),
-                          alive_o=all_gather_rows(alive_o, group))
-                contigs = emit_contigs_device(
-                    fs, all_gather_rows(okv, group), params.k,
-                    params.min_contig_len, node_primary=True)
-            mark("emit", t0)
-            rounds = next((dict(p1=e["p1"], p2=e["p2"])
-                           for e in events.events
-                           if e["event"] == "dist_final_fast_rounds"), {})
-            pt["exchange_ledger"] = dict(ledger.summary(),
-                                         final_fast_rounds=rounds)
-            if out_path is None:
-                return contigs
-            t0 = time.perf_counter()
-            if ok:
-                total = write_fasta_parallel(out_path, contigs, group)
-            else:
-                total = _write_on_rank0(out_path, contigs, group)
-            mark("write", t0)
-            return total
+            with metrics.phase("dist_contigs") as info:
+                # with out_path each rank decodes only its 1/P contig slice
+                t0 = time.perf_counter()
+                contigs, ok = emit_contigs_sharded(
+                    head, dist_, primary, alive_o, okv, params.k,
+                    params.min_contig_len, group, ledger,
+                    local_slice=(rank, S) if out_path is not None else None)
+                count("escapes", int(not ok))
+                if not ok:
+                    metrics.log("dist_emit_overflow_fallback")
+                    fs = dict(head=all_gather_rows(head, group),
+                              dist=all_gather_rows(dist_, group),
+                              primary=all_gather_rows(primary, group),
+                              alive_o=all_gather_rows(alive_o, group))
+                    contigs = emit_contigs_device(
+                        fs, all_gather_rows(okv, group), params.k,
+                        params.min_contig_len, node_primary=True)
+                mark("emit", t0)
+                rounds = next((dict(p1=e["p1"], p2=e["p2"])
+                               for e in metrics.events[n_events:]
+                               if e["event"] == "dist_final_fast_rounds"),
+                              {})
+                pt["exchange_ledger"] = dict(ledger.summary(),
+                                             final_fast_rounds=rounds)
+                if out_path is None:
+                    info["n_contigs"] = len(contigs)
+                    return contigs
+                t0 = time.perf_counter()
+                if ok:
+                    total = write_fasta_parallel(out_path, contigs, group)
+                else:
+                    total = _write_on_rank0(out_path, contigs, group)
+                mark("write", t0)
+                info["n_contigs"] = total
+                return total
         del head, dist_, primary, alive_o
 
     if forbid_replicated:
@@ -234,18 +270,22 @@ def assemble_multihost(local_reads, params: AssemblyParams | None = None,
     # correctness escape: every rank gathers the graph and runs the
     # single-device passes from an all-true mask (also when only the
     # final state overflowed, as the reference does)
-    succ = all_gather_rows(succ, group)
-    okv = all_gather_rows(okv, group)
-    counts = all_gather_rows(counts, group)
-    n_all = all_gather_rows(
-        torch.tensor([n_unique], dtype=torch.int64, device=dev), group)
-    valid = (torch.arange(local_cap, device=dev)[None, :]
-             < n_all[:, None]).reshape(-1)
-    alive = torch.ones(S * local_cap, dtype=torch.bool, device=dev)
-    alive, links = simplify_with_metrics(succ, okv, counts, alive, valid,
-                                         params, with_links=True)
-    fs = final_chain_state(succ, okv, counts, alive, valid, links=links)
-    contigs = emit_contigs_device(fs, okv, params.k, params.min_contig_len)
-    if out_path is not None:
-        return _write_on_rank0(out_path, contigs, group)
+    with metrics.phase("dist_simplify") as info:
+        succ = all_gather_rows(succ, group)
+        okv = all_gather_rows(okv, group)
+        counts = all_gather_rows(counts, group)
+        n_all = all_gather_rows(
+            torch.tensor([n_unique], dtype=torch.int64, device=dev), group)
+        valid = (torch.arange(local_cap, device=dev)[None, :]
+                 < n_all[:, None]).reshape(-1)
+        alive = torch.ones(S * local_cap, dtype=torch.bool, device=dev)
+        alive, links = simplify_with_metrics(succ, okv, counts, alive, valid,
+                                             params, metrics, with_links=True)
+        fs = final_chain_state(succ, okv, counts, alive, valid, links=links)
+    with metrics.phase("dist_contigs") as info:
+        contigs = emit_contigs_device(fs, okv, params.k,
+                                      params.min_contig_len)
+        info["n_contigs"] = len(contigs)
+        if out_path is not None:
+            return _write_on_rank0(out_path, contigs, group)
     return contigs

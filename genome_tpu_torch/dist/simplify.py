@@ -41,6 +41,7 @@ import contextlib
 import torch
 import torch.distributed as dist
 
+from genome_tpu_torch.assemble.metrics import count
 from genome_tpu_torch.dist.count import EMPTY32, route_buckets
 from genome_tpu_torch.dist.ledger import ExchangeLedger
 from genome_tpu_torch.dist.mesh import all_any_each, all_to_all_rows
@@ -134,6 +135,10 @@ def make_ops(group, width: int, ledger: ExchangeLedger | None = None):
     """The sharded primitives over an id space of `width` ids a rank
     (2 * local_capacity oriented ids, or local_capacity canonical ones)."""
     S, me = dist.get_world_size(group), dist.get_rank(group)
+    if S * width > EMPTY32:
+        # ids ride as int32 words, with EMPTY32 above every one of them
+        raise ValueError(f"{S} ranks of {width} ids pass the int32 id "
+                         f"space ({EMPTY32})")
 
     def remote_gather(vals, idx, valid, cap, defaults):
         """vals[j][idx[i]] over the sharded global id space.
@@ -747,9 +752,11 @@ def final_state_sharded(succ, okv, counts, alive, n_loc: int, group=None,
                     metrics.log("dist_final_fast_rounds", p1=rnds[0],
                                 p2=rnds[1])
                 return head, dist_, primary, alive_o, False
+            count("retries")
             if metrics is not None:
                 metrics.log("dist_final_fast_fallback")
             break
+        count("retries")
         slack *= 2.0
         if metrics is not None:
             metrics.log("dist_final_fast_overflow_retry", slack=slack)
@@ -762,6 +769,7 @@ def final_state_sharded(succ, okv, counts, alive, n_loc: int, group=None,
             ledger.invoke("dist_final_exact")
         if not all_any_each([ovf], group)[0]:
             return head, dist_, primary, alive_o, False
+        count("retries")
         slack *= 2.0
         if metrics is not None:
             metrics.log("dist_final_overflow_retry", slack=slack)
@@ -825,5 +833,6 @@ def simplify_sharded(succ, okv, counts, alive, n_loc: int, params,
                 break
         if not overflowed:
             return alive, False
+        count("retries")
         slack *= 2.0
     return alive0, True

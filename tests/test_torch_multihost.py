@@ -376,3 +376,80 @@ def test_launch_cuda_without_card_fails_before_any_group(monkeypatch,
                      "--num-processes", "2", "--process-id", "0"])
     assert not dist.is_initialized()
     assert not (tmp_path / "c.fasta").exists()
+
+
+# ---- four ranks with Metrics: the benchmark's chr14 configuration, cut
+# to 20 kbp ----
+
+# chr14_k31 (assembly_bench/configs) at 20 kbp: its Alu-like family at 10
+# copies, its L1-like one at 3 copies of 2 kb; 101 bp reads at 30x, k = 31
+CHR14_TINY = dict(genome_len=20000, repeat_families=[[300, 10], [2000, 3]],
+                  repeat_divergence=0.002, read_len=101, error_rate=0.002)
+DIST_PHASES = {"dist_extract", "dist_count", "dist_build",
+               "dist_simplify_sharded", "dist_final_sharded", "dist_contigs"}
+FOUR_JOBS = [("plain", SHARDED_ONLY), ("simplify_escape", STARVED_SIMPLIFY)]
+
+
+@pytest.fixture(scope="module")
+def four():
+    """assemble_multihost with metrics= on 4 gloo ranks, each rank with
+    its contiguous shard of one isolate; the plain reference's contigs."""
+    from assembly_bench import gen, reference
+    codes = gen.make_isolate(CHR14_TINY, dict(coverage=30, ploidy=1),
+                             2**31 + 1401, 0)
+    ranks = run_local(torch_multihost_ranks.multihost_metrics, 4,
+                      device="cpu", timeout_s=300, args=(codes, 31, FOUR_JOBS))
+    want = reference.assemble(codes, 31, 2, device="cpu")
+    return dict(ranks=ranks, want=want)
+
+
+def _phase_ends(events):
+    return [e for e in events if e["event"] == "phase_end"]
+
+
+def _counter(events, name):
+    return sum(e.get(name, 0) for e in _phase_ends(events))
+
+
+@pytest.mark.parametrize("job", [j for j, _ in FOUR_JOBS])
+def test_multihost_four_ranks_match_reference(four, job):
+    """Every rank returns the plain reference's contigs, on the sharded
+    path and through the replicated escape."""
+    assert len(four["want"]) > 1
+    for r in four["ranks"]:
+        assert r[job]["contigs"] == four["want"]
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_multihost_phases_spans_and_counters(four, rank):
+    """The sharded path runs in assemble_sharded's phases; every exchange
+    is a dist.exchange span; exchange_bytes is (S - 1)/S of every
+    exchange's output buffer and `collectives` every collective call, as
+    spied on torch.distributed; no escape."""
+    r = four["ranks"][rank]["plain"]
+    ev, seen = r["events"], r["seen"]
+    assert {e["phase"] for e in _phase_ends(ev)} == DIST_PHASES
+    spans = [e for e in ev if e["event"] == "span"
+             and e["name"] == "dist.exchange"]
+    assert len(spans) == seen["all_to_all_single"] + seen["all_gather"] > 0
+    assert all(s["parent"] in DIST_PHASES for s in spans)
+    assert _counter(ev, "exchange_bytes") == seen["bytes"] > 0
+    assert _counter(ev, "collectives") == (
+        seen["all_to_all_single"] + seen["all_gather"] + seen["all_reduce"])
+    assert _counter(ev, "syncs") >= seen["all_reduce"]
+    assert _counter(ev, "escapes") == 0
+    assert _counter(ev, "retries") == 0
+
+
+def test_multihost_escape_counted(four):
+    """A used-up slack ladder: each rank counts one escape and three
+    overflowed rungs, and the escape runs in dist_simplify."""
+    for r in four["ranks"]:
+        ev = r["simplify_escape"]["events"]
+        assert _counter(ev, "escapes") == 1
+        assert _counter(ev, "retries") == 3
+        assert {e["phase"] for e in _phase_ends(ev)} == {
+            "dist_extract", "dist_count", "dist_build",
+            "dist_simplify_sharded", "dist_simplify", "dist_contigs"}
+        assert any(e["event"] == "dist_simplify_overflow_fallback"
+                   for e in ev)

@@ -78,3 +78,44 @@ def multihost(reads, k, min_coverage, jobs, ckpt_dir, extra):
     changed = local + [extra] * 2 if rank == 0 else local
     run("resume_changed", changed, ckpt=ckpt(changed))
     return out
+
+
+def multihost_metrics(codes, k, jobs):
+    """assemble_multihost with a Metrics on this rank's contiguous shard
+    of the code matrix `codes`, once a job: (name, overrides). Every
+    collective call is spied on: returns, per job, the contigs, the
+    Metrics events, the calls of each collective and the bytes that
+    left this rank, (S - 1)/S of each exchange's output buffer."""
+    from genome_tpu_torch.assemble.metrics import Metrics
+    S, rank = dist.get_world_size(), dist.get_rank()
+    params = AssemblyParams(k=k, min_coverage=2)
+    local = shard_reads(codes, S)[rank]
+    out = {}
+    for name, overrides in jobs:
+        seen = dict(all_to_all_single=0, all_gather=0, all_reduce=0,
+                    bytes=0)
+
+        def spied(fn_name, out_bytes):
+            fn = getattr(dist, fn_name)
+
+            def call(*args, **kwargs):
+                seen[fn_name] += 1
+                seen["bytes"] += out_bytes(args) * (S - 1) // S
+                return fn(*args, **kwargs)
+            return call
+
+        spies = {
+            "torch.distributed:all_to_all_single": spied(
+                "all_to_all_single",
+                lambda a: a[0].numel() * a[0].element_size()),
+            "torch.distributed:all_gather": spied(
+                "all_gather",
+                lambda a: sum(t.numel() * t.element_size() for t in a[0])),
+            "torch.distributed:all_reduce": spied("all_reduce",
+                                                  lambda a: 0)}
+        m = Metrics(quiet=True)
+        with _overridden({**spies, **overrides}):
+            contigs = assemble_multihost(local, params, metrics=m,
+                                         device="cpu")
+        out[name] = dict(contigs=contigs, events=m.events, seen=seen)
+    return out
