@@ -13,7 +13,9 @@ final state to the contigs:
   bases 16 a 32-bit word at their in-block offsets, and emits one
   (head, block index, fill count) record a block;
 - the chain heads' k-mers (one a contig) ride a second, small routing;
-- the host orders the blocks by (head, block) and decodes them.
+- the gathered blocks are ordered by (head, block) on the device, which
+  writes each contig's canonical ASCII bytes; the host only slices and
+  sorts (contigs_from_gathered).
 
 The exchanges carry JAX's 32-bit words (int32 columns here), so the
 `dist_emit` ledger entry's bytes equal JAX's. Where JAX's processes read
@@ -30,20 +32,19 @@ from __future__ import annotations
 import heapq
 import os
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
-from genome_tpu_torch.assemble.metrics import count
+from genome_tpu_torch.assemble.metrics import count, host_read, span
 from genome_tpu_torch.dist.count import EMPTY32, route_buckets
 from genome_tpu_torch.dist.ledger import ExchangeLedger
 from genome_tpu_torch.dist.mesh import (all_any_each, all_gather_rows,
                                         group_device)
 from genome_tpu_torch.dist.simplify import _cols
+from genome_tpu_torch.graph.contigs import orient_ascii
 from genome_tpu_torch.io.fastx import write_fasta
 from genome_tpu_torch.kernels.compact import compact_flagged
-from genome_tpu_torch.kernels.keys import fmix32, mul32
-from genome_tpu_torch.utils import dna
+from genome_tpu_torch.kernels.keys import INT64_MAX, fmix32, mul32
 
 I32 = torch.int32
 I64 = torch.int64
@@ -158,7 +159,7 @@ def emit_contigs_sharded(head, dist_, primary, alive_o, okv, k: int,
     emits from the gathered state).
 
     local_slice=(pid, P): only the pid-th of P contiguous slices of the
-    head-ordered contig set is decoded and returned (the parallel write,
+    head-ordered contig set is written and returned (the parallel write,
     write_fasta_parallel). The missing-head check runs on the global head
     set first, so every rank takes the same raise-or-continue decision."""
     S = dist.get_world_size(group)
@@ -181,91 +182,137 @@ def emit_contigs_sharded(head, dist_, primary, alive_o, okv, k: int,
     else:
         return [], False
 
-    # every rank's fixed-capacity outputs, in one all_gather
+    # every rank's fixed-capacity outputs, in one all_gather, kept on the
+    # device
     words, bhead, bblk, bcnt, n_blocks, hid, hh, hl, n_heads, _ = out
     parts = (words, bhead, bblk, bcnt, hid, hh, hl,
              torch.stack([n_blocks, n_heads]).to(I32))
-    flat = all_gather_rows(torch.cat(parts), group).cpu().numpy()
-    flat = flat.reshape(S, -1)
-    cuts = np.cumsum([0] + [p.numel() for p in parts])
-    (words, bhead, bblk, bcnt, hid, hh, hl, counts) = (
-        flat[:, a:b] for a, b in zip(cuts[:-1], cuts[1:]))
-    words = words.view(np.uint32)
+    flat = all_gather_rows(torch.cat(parts), group).reshape(S, -1)
+    gathered = flat.split([p.numel() for p in parts], dim=1)
+    return contigs_from_gathered(*gathered, k, min_contig_len,
+                                 local_slice), True
 
-    heads_all, blks_all, cnts_all, codes_all = [], [], [], []
-    for s in range(S):
-        nb = int(counts[s, 0])
-        if nb == 0:
-            continue
-        heads_all.append(bhead[s, :nb])
-        blks_all.append(bblk[s, :nb])
-        cnts_all.append(bcnt[s, :nb])
-        w = words[s, : nb * (BLOCK // 16)]
-        c = (w[:, None] >> (2 * np.arange(16, dtype=np.uint32))) & 3
-        codes_all.append(c.astype(np.uint8).reshape(nb, BLOCK))
-    if not heads_all:
-        return [], True
-    bh = np.concatenate(heads_all)
-    bb = np.concatenate(blks_all)
-    bc = np.concatenate(cnts_all)
-    bcodes = np.concatenate(codes_all, axis=0)
-    order = np.lexsort((bb, bh))
-    bh, bc, bcodes = bh[order], bc[order], bcodes[order]
 
-    # the head k-mer join table: sorted ids, searched
-    kid = np.concatenate([hid[s, : int(counts[s, 1])] for s in range(S)])
-    kkm = np.concatenate([
-        (hh[s, : int(counts[s, 1])].astype(np.int64) << 32)
-        | hl[s, : int(counts[s, 1])].view(np.uint32).astype(np.int64)
-        for s in range(S)])
-    korder = np.argsort(kid, kind="stable")
-    kid, kkm = kid[korder], kkm[korder]
+def contigs_from_gathered(words, bhead, bblk, bcnt, hid, hh, hl, counts,
+                          k: int, min_contig_len: int = 0,
+                          local_slice: tuple[int, int] | None = None
+                          ) -> list[str]:
+    """The sorted canonical contigs of every rank's gathered emission
+    outputs: each argument [S, ...] on one device, row s rank s's words,
+    bhead, bblk, bcnt, hid, hh, hl as make_sharded_emit returns them and
+    counts[s] = (n_blocks, n_heads).
 
-    starts = np.flatnonzero(np.concatenate([[True], bh[1:] != bh[:-1]]))
-    ends = np.concatenate([starts[1:], [bh.size]])
-    # every block chain's head must have a head record (searchsorted
-    # returns an insertion point, not membership). Checked on the global
-    # head set before any local_slice: every rank holds the same (kid,
-    # bh) and takes the same decision, or one rank raises while the
-    # others wait in write_fasta_parallel's gather.
-    pos_all = np.searchsorted(kid, bh[starts])
-    if pos_all.size and (int(pos_all.max()) >= kid.size
-                         or not (kid[pos_all] == bh[starts]).all()):
-        raise AssertionError(
-            "dist emit: a contig head id is missing from the head k-mer "
-            "join table (the head and block exchanges disagree)")
-    if local_slice is not None:
-        # this rank's contiguous contig range: a contig's blocks are
-        # contiguous after the (head, block) sort
-        pid, nproc = local_slice
-        n_c = starts.size
-        per = -(-n_c // nproc)
-        ci0, ci1 = min(pid * per, n_c), min((pid + 1) * per, n_c)
-        if ci0 >= ci1:
-            return [], True
-        blk0 = int(starts[ci0])
-        blk1 = int(starts[ci1]) if ci1 < n_c else bh.size
-        starts = starts[ci0:ci1] - blk0
-        ends = ends[ci0:ci1] - blk0
-        bc = bc[blk0:blk1]
-        bcodes = bcodes[blk0:blk1]
-        pos_all = pos_all[ci0:ci1]
-    # one base stream in (head, block) order, each block's filled prefix,
-    # decoded to text once; each contig is a slice of it
-    valid = np.arange(BLOCK, dtype=np.int32)[None, :] < bc[:, None]
-    flat = bcodes[valid]
-    cum = np.concatenate([[0], np.cumsum(bc)])
-    text = np.frombuffer(b"ACGT", dtype=np.uint8)[flat].tobytes().decode(
-        "ascii")
-    head_km = kkm[pos_all]
-    out: list[str] = []
-    for i in range(starts.size):
-        a, b = starts[i], ends[i]
-        seq = dna.kmer_to_str(int(head_km[i]), k) + text[cum[a] + 1 : cum[b]]
-        c = min(seq, dna.revcomp_str(seq))
-        if len(c) >= min_contig_len:
-            out.append(c)
-    return sorted(out), True
+    On the device: the valid blocks sorted by (head, block), so that a
+    chain's blocks are contiguous and all but its last full (a chain's
+    dists are 0..n-1); each chain head joined to its k-mer record; each
+    contig's canonical bytes written as graph/contigs.py writes them (its
+    head k-mer's k bases, then the last base of each node at dist 1..n-1,
+    oriented by orient_ascii). One host read brings the contig count, the
+    slice's range and base count and the missing-head flag (computed on
+    the global head set, so every rank raises or none); two copies bring
+    the bytes and the (offsets, lengths, reversed) stack; the host
+    decodes, slices and sorts.
+
+    local_slice=(pid, P): bytes only for the pid-th of P contiguous
+    slices of the head-ordered contigs.
+    Spans `dist_emit.device`, `dist_emit.copy`, `dist_emit.strings`;
+    counters `d2h_bytes` (the two copies) and `contigs_reversed` (before
+    min_contig_len)."""
+    dev = words.device
+    S, block_cap = bhead.shape
+    with span("dist_emit.device"):
+        # the valid blocks in (head, block) order, the rest last
+        vb = (torch.arange(block_cap, device=dev) < counts[:, :1]).reshape(-1)
+        key = torch.where(vb, (bhead.reshape(-1).to(I64) << 32)
+                          | bblk.reshape(-1).to(I64), INT64_MAX)
+        ks, border = torch.sort(key)
+        n_b = ks.numel()
+        valid = ks != INT64_MAX
+        sh = ks >> 32
+        first = valid.clone()
+        first[1:] &= sh[1:] != sh[:-1]
+        cid_b = torch.cumsum(first, 0) - 1
+        n_c = first.sum()
+        # per contig (n_b slots, the first n_c used; slot n_b takes the
+        # rest): its first sorted block, its node count and its nodes'
+        # start in contig order
+        cfb = torch.zeros(n_b + 1, dtype=I64, device=dev)
+        cfb[torch.where(first, cid_b, n_b)] = torch.arange(n_b, device=dev)
+        cn = torch.zeros(n_b + 1, dtype=I64, device=dev).index_add_(
+            0, torch.where(valid, cid_b, n_b),
+            torch.where(valid, bcnt.reshape(-1)[border].to(I64), 0))
+        cnode0 = torch.cat([cn.new_zeros(1), torch.cumsum(cn[:n_b], 0)])
+        # each chain head's k-mer record (ids sorted, searched)
+        vh = (torch.arange(hid.shape[1], device=dev)
+              < counts[:, 1:]).reshape(-1)
+        hks, horder = torch.sort(
+            torch.where(vh, hid.reshape(-1).to(I64), INT64_MAX), stable=True)
+        chead = sh[cfb[:n_b]]
+        pos = torch.searchsorted(hks, chead).clamp_(max=hks.numel() - 1)
+        missing = ((hks[pos] != chead)
+                   & (torch.arange(n_b, device=dev) < n_c)).any()
+        hkm = ((hh.reshape(-1).to(I64) << 32)
+               | (hl.reshape(-1).to(I64) & 0xFFFFFFFF))[horder[pos]]
+        # this rank's contig range: P contiguous slices in head order
+        if local_slice is None:
+            ci = torch.stack([n_c.new_zeros(()), n_c])
+        else:
+            pid, nproc = local_slice
+            per = torch.div(n_c + nproc - 1, nproc, rounding_mode="floor")
+            ci = torch.minimum(per * torch.arange(pid, pid + 2, device=dev),
+                               n_c)
+        nodes = cnode0.index_select(0, ci)
+        c0, c1, n0, n1, miss = host_read("dist_emit.counts", torch.cat(
+            [ci, nodes, missing.to(I64).reshape(1)]).tolist)
+        if miss:
+            raise AssertionError(
+                "dist emit: a contig head id is missing from the head k-mer "
+                "join table (the head and block exchanges disagree)")
+        if c0 >= c1:
+            return []
+        buf, meta = _slice_bytes(words.reshape(-1), border, cfb[c0:c1],
+                                 cn[c0:c1], cnode0[c0:c1] - n0, hkm[c0:c1],
+                                 n1 - n0, k)
+    with span("dist_emit.copy"):
+        buf = host_read("dist_emit.bases", lambda: buf.cpu().numpy())
+        offs, lens, rev = host_read("dist_emit.meta",
+                                    lambda: meta.cpu().numpy())
+        count("d2h_bytes", buf.nbytes + 8 * meta.numel())
+        count("contigs_reversed", int(rev.sum()))
+    with span("dist_emit.strings"):
+        text = buf.tobytes().decode("ascii")
+        return sorted([text[o:o + n] for o, n in zip(offs.tolist(),
+                                                     lens.tolist())
+                       if n >= min_contig_len])
+
+
+def _slice_bytes(words, border, cfb, cn, s, hkm, n_nodes: int, k: int):
+    """The canonical ASCII bytes of m contigs: contig i's n_i = cn[i] nodes
+    lie in sorted blocks cfb[i], cfb[i] + 1, ... (border maps a sorted
+    block to its gathered row: words [row * BLOCK / 16 ...]) and start at
+    node s[i] of the slice; hkm[i] is its head k-mer. Contig i's
+    L_i = n_i + k - 1 bases lie at offset s_i + i (k - 1): its head
+    k-mer's k bases, then the last base of the node at dist j - k + 1.
+    Returns orient_ascii's (bytes, meta)."""
+    dev = words.device
+    m = cn.numel()
+    ids = torch.arange(m, device=dev)
+    lens = cn + (k - 1)
+    offs = s + ids * (k - 1)
+    n_out = n_nodes + m * (k - 1)
+    cid = torch.repeat_interleave(ids, lens, output_size=n_out)
+    j = torch.arange(n_out, device=dev) - offs[cid]
+    d = (j - (k - 1)).clamp_(min=0)
+    row = border[cfb[cid] + (d >> _LOG_B)]
+    w = words[row * (BLOCK // 16) + ((d & (BLOCK - 1)) >> 4)]
+    del row
+    f = ((w >> (2 * (d & 15))) & 3).to(torch.uint8)
+    del w, d
+    # the first k bases: the head k-mer's
+    t = torch.arange(k, device=dev)
+    f[(offs[:, None] + t).reshape(-1)] = (
+        (hkm[:, None] >> (2 * (k - 1 - t))) & 3).to(torch.uint8).reshape(-1)
+    return orient_ascii(f, offs, lens, cid, j)
 
 
 def write_fasta_parallel(path: str, local_contigs: list[str],

@@ -94,11 +94,10 @@ def _canonical_bytes(okv, order, starts, n_sel: int, n_contigs: int, k: int):
     Contig i holds slots [s_i, e_i) of `order`; its L_i = e_i - s_i + k - 1
     bases lie at offset o_i = s_i + i (k - 1). Base j is base j of the
     first node's k-mer for j < k, else the last base of slot
-    s_i + j - k + 1: what _assemble concatenates. The contig is written
-    reverse-complemented iff, at its first j with f[j] != 3 - f[L_i-1-j],
-    the reverse complement's base is smaller: min(seq, revcomp(seq)), as
-    A < C < G < T in codes and in ASCII. Returns (bytes [n_out] uint8,
-    meta [3, n_contigs] int64: offsets, lengths, reversed)."""
+    s_i + j - k + 1: what _assemble concatenates. orient_ascii writes
+    min(seq, revcomp(seq)), as A < C < G < T in codes and in ASCII.
+    Returns (bytes [n_out] uint8, meta [3, n_contigs] int64: offsets,
+    lengths, reversed)."""
     dev = okv.device
     s = starts[:n_contigs].to(torch.int64)
     ids = torch.arange(n_contigs, device=dev)
@@ -112,6 +111,17 @@ def _canonical_bytes(okv, order, starts, n_sel: int, n_contigs: int, k: int):
     src = s[cid] + (j - (k - 1)).clamp_(min=0)
     f = ((okv[order[src]] >> (2 * back)) & 3).to(torch.uint8)
     del back, src
+    return orient_ascii(f, offs, lens, cid, j)
+
+
+def orient_ascii(f, offs, lens, cid, j):
+    """The orientation and ASCII tail of the canonical-bytes layout: f
+    [n_out] uint8 the forward base codes, contig cid[x] holding positions
+    [offs, offs + lens) and j[x] = x - offs[cid[x]]. Each contig is written
+    reverse-complemented iff, at its first j with f[j] != 3 - f[L-1-j],
+    the reverse complement's base is smaller (palindromes stay forward).
+    Returns (bytes [n_out] uint8, meta [3, n_contigs] int64: offsets,
+    lengths, reversed)."""
     mirror = offs[cid] + lens[cid] - 1 - j
     rc = 3 - f[mirror]
     del mirror

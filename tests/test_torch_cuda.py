@@ -650,3 +650,47 @@ def test_emission_canonical_bytes_on_card_equal_host(cuda_device):
     assert len(warned) == 3
     assert end["d2h_bytes"] == sum(map(len, want)) + 24 * len(want)
     assert 0 < end["contigs_reversed"] < len(want)
+
+
+@pytest.mark.cuda
+def test_sharded_emission_bytes_on_card_equal_host(cuda_device):
+    """dist/emit.py::contigs_from_gathered on the card equals the plain
+    host decode on gathered rows of S = 4 ranks holding 20,000 chains at
+    k = 31 (1 to 4 blocks each, spread over the ranks), whole and in one
+    local slice; it reads the device three times (the counts, the bytes,
+    the meta stack) and synchronizes nowhere else; d2h_bytes is those two
+    copies."""
+    from genome_tpu_torch.dist.emit import contigs_from_gathered
+    from genome_tpu_torch.utils import dna
+    from torch_emit_gathered import gathered_case, host_decode
+    rng = np.random.default_rng(14)
+    k, n = 31, 20_000
+    lens = np.where(rng.random(n) < 0.02, rng.integers(1024, 4096, n),
+                    rng.integers(k, 400, n))
+    text = dna.decode(rng.integers(0, 4, int(lens.sum()), dtype=np.uint8))
+    cuts = np.concatenate([[0], np.cumsum(lens)])
+    seqs = [text[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    rows = gathered_case(seqs, 4, k, seed=14)
+    want = host_decode(*rows, k)
+    drows = [torch.from_numpy(x).to(cuda_device) for x in rows]
+    assert contigs_from_gathered(*drows, k, 0, (1, 4)) == host_decode(
+        *rows, k, 0, (1, 4))
+    torch.cuda.synchronize()
+    m = Metrics(quiet=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with m.phase("dist_contigs"):
+                got = contigs_from_gathered(*drows, k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert got == want and len(want) == n
+    end = next(e for e in m.events if e["event"] == "phase_end")
+    assert end["sync_sites"] == {"dist_emit.counts": 1, "dist_emit.bases": 1,
+                                 "dist_emit.meta": 1}
+    warned = [w for w in caught
+              if str(w.message).startswith("called a synchronizing")]
+    assert len(warned) == 3
+    assert end["d2h_bytes"] == sum(map(len, want)) + 24 * n
+    assert 0 < end["contigs_reversed"] < n
