@@ -15,6 +15,8 @@ from genome_tpu.kernels.mergesort import sort_pairs_merge as jax_merge_sort
 from genome_tpu_torch import convert
 from genome_tpu_torch.kernels import bitonic, mergesort
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 
 def _case(seed, n, key_hi, num_keys):
     """num_keys uint32 key arrays below 2^31 (key_hi values: many ties)

@@ -22,6 +22,8 @@ from genome_tpu_torch.graph.build import build_graph_kjoin
 from genome_tpu_torch.io import random_genome, simulate_reads
 from genome_tpu_torch.kernels.extract import pack_reads
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 
 def _reads(seed, glen=1200):
     return simulate_reads(random_genome(glen, seed=seed), read_len=60,

@@ -15,6 +15,8 @@ from genome_tpu.kernels.compact import compact_flagged as jax_compact
 from genome_tpu.kernels.compact import compact_ids as jax_compact_ids
 from genome_tpu_torch.kernels import compact
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 
 def _flags_with_counts(rng, flag_counts):
     n = len(flag_counts) * TILE

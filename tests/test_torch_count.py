@@ -20,6 +20,8 @@ from genome_tpu_torch.kernels import count
 from genome_tpu_torch.kernels.mergesort import sort_pairs_merge
 from genome_tpu_torch.kernels.extract import pack_reads
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 
 def _stream(seed=1, glen=1500, err=0.02, k=21):
     reads = simulate_reads(random_genome(glen, seed=seed), read_len=70,

@@ -55,6 +55,7 @@ from genome_tpu_torch.params import AssemblyParams
 
 from tests import torch_dist_ranks
 from tests.test_golden import _case
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 LOCAL_CAP = 8192
 SHARDS = (1, 2, 4)
@@ -514,20 +515,13 @@ def _port_alive(runs, S, name):
 
 
 def _port_replicated_alive(g, params):
-    """The port's replicated passes on the gathered JAX graph, on one
-    thread: thousands of small ops, whose thread-pool barriers cost
-    minutes when parallel test workers load every core."""
+    """The port's replicated passes on the gathered JAX graph."""
     succ, okv_hi, okv_lo, cnts, n_uni = g
     succ_t, okv = convert.graph_from_jax(succ, okv_hi, okv_lo, "cpu")
     valid = torch.from_numpy(_valid(n_uni))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return simplify_with_metrics(
-            succ_t, okv, torch.from_numpy(cnts.astype(np.int32)),
-            torch.ones_like(valid), valid, _port_params(params)).numpy()
-    finally:
-        torch.set_num_threads(threads)
+    return simplify_with_metrics(
+        succ_t, okv, torch.from_numpy(cnts.astype(np.int32)),
+        torch.ones_like(valid), valid, _port_params(params)).numpy()
 
 
 @pytest.mark.parametrize("S", SHARDS)

@@ -10,6 +10,7 @@ from genome_tpu_torch.assemble.metrics import Metrics
 from genome_tpu_torch.dist.emit import BLOCK, contigs_from_gathered
 from genome_tpu_torch.utils import dna
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.torch_emit_gathered import gathered_case, host_decode
 
 K = 7

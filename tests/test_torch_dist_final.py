@@ -50,6 +50,7 @@ from genome_tpu_torch.io.fastx import write_fasta
 from genome_tpu_torch.params import AssemblyParams
 
 from tests import torch_dist_ranks
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 LOCAL_CAP = 8192
 K = 15
@@ -147,37 +148,30 @@ def _valid(n_uni):
 
 def _graphs(S, cases):
     """JAX's sharded graph of each case, and the port's replicated
-    passes' alive mask on it (on one thread: thousands of small ops
-    stall on the pool's barriers under load)."""
+    passes' alive mask on it."""
     mesh = Mesh(np.array(jax.devices()[:S]), ("shard",))
     streams, m = _padded_streams(S, cases)
     counter = make_sharded_count(mesh, "shard", m + 64, LOCAL_CAP)
     builder = make_sharded_build(mesh, "shard", K, LOCAL_CAP, 8 * LOCAL_CAP)
     out = {}
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        for name, (reads, params) in cases.items():
-            th, tl, cnts, n_uni, ovf = counter(
-                *streams[name], jnp.asarray([params.min_coverage],
-                                            jnp.uint32))
-            succ, okv_hi, okv_lo, bovf = builder(th, tl, n_uni)
-            assert not np.asarray(ovf).any() and not np.asarray(bovf).any()
-            succ, okv_hi, okv_lo, cnts, n_uni = (
-                np.asarray(x) for x in (succ, okv_hi, okv_lo, cnts, n_uni))
-            succ_t, okv = convert.graph_from_jax(succ, okv_hi, okv_lo, "cpu")
-            counts = torch.from_numpy(cnts.astype(np.int32))
-            valid = torch.from_numpy(_valid(n_uni))
-            alive = simplify_with_metrics(succ_t, okv, counts,
-                                          torch.ones_like(valid), valid,
-                                          _port_params(params))
-            fs = final_chain_state(succ_t, okv, counts, alive, valid)
-            out[name] = dict(succ=succ, okv_hi=okv_hi, okv_lo=okv_lo,
-                             cnts=cnts, n_uni=n_uni, okv=okv.numpy(),
-                             alive=alive.numpy(),
-                             replicated={k: v.numpy() for k, v in fs.items()})
-    finally:
-        torch.set_num_threads(threads)
+    for name, (reads, params) in cases.items():
+        th, tl, cnts, n_uni, ovf = counter(
+            *streams[name], jnp.asarray([params.min_coverage], jnp.uint32))
+        succ, okv_hi, okv_lo, bovf = builder(th, tl, n_uni)
+        assert not np.asarray(ovf).any() and not np.asarray(bovf).any()
+        succ, okv_hi, okv_lo, cnts, n_uni = (
+            np.asarray(x) for x in (succ, okv_hi, okv_lo, cnts, n_uni))
+        succ_t, okv = convert.graph_from_jax(succ, okv_hi, okv_lo, "cpu")
+        counts = torch.from_numpy(cnts.astype(np.int32))
+        valid = torch.from_numpy(_valid(n_uni))
+        alive = simplify_with_metrics(succ_t, okv, counts,
+                                      torch.ones_like(valid), valid,
+                                      _port_params(params))
+        fs = final_chain_state(succ_t, okv, counts, alive, valid)
+        out[name] = dict(succ=succ, okv_hi=okv_hi, okv_lo=okv_lo,
+                         cnts=cnts, n_uni=n_uni, okv=okv.numpy(),
+                         alive=alive.numpy(),
+                         replicated={k: v.numpy() for k, v in fs.items()})
     return out
 
 

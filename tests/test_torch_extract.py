@@ -16,6 +16,8 @@ from genome_tpu_torch.kernels import keys
 from genome_tpu_torch.kernels.extract import (extract_canonical_kmers,
                                               pack_reads)
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 
 def _reads(seed, n=40, lo=20, hi=90):
     rng = np.random.default_rng(seed)

@@ -15,6 +15,7 @@ from genome_tpu_torch.assemble import cli
 from genome_tpu_torch.params import AssemblyParams
 
 from tests.test_golden import CASES, _case
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("oracle", ["assemble_golden", "assemble_tiny"])

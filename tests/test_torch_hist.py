@@ -16,6 +16,8 @@ from genome_tpu.kernels.pallas_hist import digit_histogram_auto as jax_hist
 from genome_tpu_torch.kernels import hist
 from genome_tpu_torch.kernels.keys import keys_from_pair_np
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 TILE = TILE_ROWS * LANES
 
 

@@ -1,6 +1,7 @@
 """Import hygiene of the port: every module of genome_tpu_torch imports in
 a fresh interpreter without pulling in JAX or anything of genome_tpu; the
-golden oracles pull in no torch and none of the code they check."""
+golden oracles pull in no torch and none of the code they check; every
+port test file runs torch on one CPU thread."""
 
 import pkgutil
 import subprocess
@@ -65,3 +66,15 @@ def test_golden_is_independent_of_the_checked_code():
         "genome_tpu_torch.golden.assembler", "genome_tpu_torch.golden.tiny",
         "genome_tpu_torch.params", "genome_tpu_torch.utils",
         "genome_tpu_torch.utils.dna"]
+
+
+def test_port_test_files_run_torch_on_one_thread():
+    """Every port test file but the card's lane imports tests/torch_cpu.py's
+    autouse fixture, so none runs at torch's default thread count."""
+    skip = {ROOT / "tests/test_torch_cuda.py", Path(__file__).resolve()}
+    files = sorted(set(ROOT.glob("tests/test_torch_*.py")) - skip)
+    assert len(files) >= 17
+    line = "from tests.torch_cpu import one_torch_thread  # noqa: F401"
+    missing = [f.name for f in files
+               if line not in f.read_text().splitlines()]
+    assert not missing, missing

@@ -20,6 +20,8 @@ from genome_tpu_torch.io import random_genome, simulate_reads
 from genome_tpu_torch.kernels.extract import pack_reads
 from genome_tpu_torch.params import AssemblyParams
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 PIPELINE_SPANS = ("count.reads", "count.extract", "count.pack", "count.sort",
                   "count.runs", "final", "emit", "emit.device", "emit.copy",
                   "emit.strings")

@@ -35,6 +35,7 @@ from genome_tpu_torch.dist import launch, run_local
 from genome_tpu_torch.io import read_fastx, write_fasta
 
 from tests import torch_dist_ranks, torch_multihost_ranks
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 K = 15
@@ -251,7 +252,8 @@ def _launch(tmp, fq, out, extra=(), env_extra=None, timeout=180.0,
     other gets `grace` seconds to fail too (gloo reports a dead peer),
     then is killed; past `timeout` every process is killed."""
     rdv = tmp / f"rendezvous-{uuid.uuid4().hex}"
-    # both ranks share the host's cores: one thread each, as run_local's
+    # one thread a rank, tests/torch_cpu.py's policy, which no fixture
+    # carries into a child interpreter
     env = dict(os.environ, OMP_NUM_THREADS="1", **(env_extra or {}))
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + env.get("PYTHONPATH", "").split(os.pathsep))

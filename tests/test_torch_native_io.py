@@ -22,6 +22,8 @@ from genome_tpu_torch.kernels.extract import (
     extract_canonical_kmers_packed, extract_canonical_kmers_packed_nomask,
     pack_codes_host, pack_reads)
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 
 def _write_fastq(path, reads, meta=" extra meta"):
     with open(path, "w") as f:

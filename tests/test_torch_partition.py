@@ -17,6 +17,8 @@ from genome_tpu.kernels.partition import partition_by_bucket as jax_partition
 from genome_tpu_torch.kernels import partition
 from genome_tpu_torch.kernels.partition import CHUNK
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 ROW = 2048  # small row_len keeps interpret mode fast; % CHUNK == 0
 
 

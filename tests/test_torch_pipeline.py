@@ -23,6 +23,8 @@ from genome_tpu_torch.io.simulate import plant_repeats, simulate_reads_diploid
 from genome_tpu_torch.kernels.extract import pack_reads
 from genome_tpu_torch.params import AssemblyParams
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 
 def _case(name):
     if name == "planted":  # one tip, one bubble, one self-loop node

@@ -21,6 +21,8 @@ from genome_tpu_torch import convert
 from genome_tpu_torch.graph import simplify as simp
 from genome_tpu_torch.io import random_genome, simulate_reads
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 
 def _np(x):
     return np.asarray(x.numpy() if torch.is_tensor(x) else x)

@@ -23,6 +23,8 @@ from genome_tpu_torch.kernels.hash_table import count_kmers_hashtable
 from genome_tpu_torch.kernels.sort_bucket import (bucket_partition_sort,
                                                   count_kmers_bucket)
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 
 def _stream(k=21, seed=19, glen=1200):
     reads = simulate_reads(random_genome(glen, seed=seed), read_len=80,
