@@ -18,7 +18,9 @@ Phases (any failure exits non-zero and prints no result line):
      extract_stream first and warm and in chunks, against the uint8 path
      (pageable copy), copies timed with CUDA events, the profiler's
      host-to-device copies (kind, bytes, time); keys equal the uint8
-     path's; then every kernel against its plain PyTorch version on the
+     path's; the extraction kernel (csrc/extract.cu) against its plain
+     version at edge cases and timed at the count's two chunk shapes
+     (phase_extract); then every kernel against its plain PyTorch version on the
      card, exactly, at the main path's shapes and at edge cases, each shape timed with
      CUDA events beside its bound, the plain version and one library call
      that computes the same function (`library_ms`; the port never calls
@@ -458,6 +460,76 @@ def phase_upload(w, k) -> dict:
     return res
 
 
+# the count's chunk shapes (extract_stream's 2^18 rows): yeast's 150
+# bases at k = 31, codes100's 100 at k = 21
+EXTRACT_SHAPES = (("yeast chunk", 1 << 18, 150, 31),
+                  ("codes100 chunk", 1 << 18, 100, 21))
+
+
+def phase_extract() -> dict:
+    """The extraction kernel (csrc/extract.cu) against its plain version
+    on the card, exactly, at the count's chunk shapes (EXTRACT_SHAPES),
+    with and without the mask, timed with CUDA events beside its bound
+    (the keys written once, packed and mask read once, over 3.35 TB/s;
+    the store alone apart) and the plain version, and one call split by
+    kernel (one `extract_tiles` launch a call). The edge cases (every
+    (k, L) of the CPU tests' grid, segmented rows, odd byte offsets) are
+    the cuda lane's (tests/test_torch_cuda.py)."""
+    import numpy as np
+    import torch
+    from genome_tpu_torch.kernels import extract
+    rng = np.random.default_rng(26)
+
+    def case(B, L, k, masked):
+        codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
+        if masked:
+            codes[rng.random((B, L)) < 0.002] = 4
+            codes[0, 0] = 4
+        packed, invalid, _ = extract.pack_codes_host(codes)
+        return packed.to("cuda"), invalid.to("cuda") if masked else None
+
+    rows = []
+    for label, B, L, k in EXTRACT_SHAPES:
+        for masked in (False, True):
+            packed, invalid = case(B, L, k, masked)
+            n = B * (L - k + 1)
+            out = torch.empty(n, dtype=torch.int64, device="cuda")
+
+            def kern():
+                extract.extract_canonical_kmers_packed(packed, invalid, k, L,
+                                                       out=out)
+
+            def plain():
+                return extract.extract_canonical_kmers_packed_ref(
+                    packed, invalid, k, L)
+            kern()
+            if not torch.equal(out, plain()):
+                raise AssertionError(f"extract {label}: kernel != plain")
+            in_bytes = packed.numel() + (0 if invalid is None
+                                         else invalid.numel())
+            r = dict(label=label, rows=B, L=L, k=k, masked=masked,
+                     windows=n, ms=_time_ms(kern),
+                     plain_ms=_time_ms(plain, reps=3),
+                     bound_ms=(8 * n + in_bytes) / HBM_BYTES_PER_S * 1e3,
+                     store_bound_ms=8 * n / HBM_BYTES_PER_S * 1e3,
+                     bound_by="bytes")
+            rows.append(r)
+            print(f"[extract {label}{' mask' if masked else ''}] {B} x {L}, "
+                  f"k = {k}, {n} windows: kernel {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms (store alone "
+                  f"{r['store_bound_ms']:.4f}; x{r['ms'] / r['bound_ms']:.2f}"
+                  f"), plain {r['plain_ms']:.3f} ms", flush=True)
+            del out
+    counts = {}
+    packed, invalid = case(*EXTRACT_SHAPES[0][1:], False)
+    split = _device_split("extract yeast chunk", lambda: (
+        extract.extract_canonical_kmers_packed(packed, None, 31, 150)),
+        counts=counts)
+    if [n for name, n in counts.items() if "extract_tiles" in name] != [1]:
+        raise AssertionError(f"extract: launches a call {counts}")
+    return {"shapes": rows, "split": split}
+
+
 def _write_fastq(path, reads) -> None:
     """Reads (strings) as FASTQ records @r<i>, written 2^16 at a time."""
     step = 1 << 16
@@ -659,7 +731,7 @@ def phase_e2e(name, w, params, golden, counter="sort", ckpt=None) -> dict:
     from genome_tpu_torch.assemble.metrics import Metrics
     from genome_tpu_torch.assemble.pipeline import run_pipeline
     from genome_tpu_torch.io.benchdata import contigs_sha, workload_key
-    from genome_tpu_torch.kernels import compact
+    from genome_tpu_torch.kernels import compact, extract
 
     key = workload_key(w, params.params_hash())
     want = golden.get(key)
@@ -668,12 +740,14 @@ def phase_e2e(name, w, params, golden, counter="sort", ckpt=None) -> dict:
     m = Metrics(quiet=True)
     torch.cuda.reset_peak_memory_stats()
     compact.reset_launches()
+    extract.reset_launches()
     t0 = time.perf_counter()
     res = run_pipeline(w["err"], params, capacity=w["capacity"], metrics=m,
                        ckpt=ckpt, counter=counter, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(compact.LAUNCHES)
+    ext_launches = sum(extract.LAUNCHES.values())
     sha = contigs_sha(res["contigs"])
     phases = {e["phase"]: e for e in m.events if e["event"] == "phase_end"}
     rounds = sum(e["event"] == "simplify_round" for e in m.events)
@@ -690,13 +764,24 @@ def phase_e2e(name, w, params, golden, counter="sort", ckpt=None) -> dict:
           f" contigs={len(res['contigs'])} "
           f"bp={sum(map(len, res['contigs']))} peak_mem_bytes="
           f"{torch.cuda.max_memory_allocated()}", flush=True)
+    # the count extracts the code matrix once, one kernel launch a chunk
+    # of extract_stream's 2^18 rows; a resumed run does not extract
+    chunks = 0 if resumed else -(-w["err"].shape[0] // (1 << 18))
     if not resumed:
         print(f"[count {counter}] {name}: wall={phases['count']['wall_s']} s "
               f"kmers_per_s={phases['count']['kmers_per_s']} retries="
-              f"{sum(e['event'] == 'capacity_overflow' for e in m.events)}",
+              f"{sum(e['event'] == 'capacity_overflow' for e in m.events)} "
+              f"extract_chunks={phases['count'].get('extract_chunks')}",
               flush=True)
-    print(f"[e2e {name}] launches={json.dumps(launches, sort_keys=True)}",
-          flush=True)
+        if phases["count"].get("extract_chunks") != chunks:
+            raise AssertionError(f"{name}: extract_chunks "
+                                 f"{phases['count'].get('extract_chunks')}"
+                                 f", not {chunks}")
+    print(f"[e2e {name}] launches={json.dumps(launches, sort_keys=True)} "
+          f"extract={ext_launches}", flush=True)
+    if ext_launches != chunks:
+        raise AssertionError(f"{name}: {ext_launches} extraction launches "
+                             f"for {chunks} chunks")
     print(f"[e2e {name}] sha={sha} golden={want}", flush=True)
     if sha != want:
         raise AssertionError(f"{name}: contig SHA {sha} != golden {want}")
@@ -712,6 +797,7 @@ def phase_e2e(name, w, params, golden, counter="sort", ckpt=None) -> dict:
     if missing:
         raise AssertionError(f"{name}: no kernel launch at {missing}")
     return dict(wall_s=wall, launches=launches, sha=sha,
+                extract_launches=ext_launches,
                 phases={p: e["wall_s"] for p, e in phases.items()})
 
 
@@ -2283,6 +2369,7 @@ def main() -> int:
     # launch, and the ruler ranking is many small launches
     final_rank = phase_final_rank(legacy, params, smi)
     upload = phase_upload(legacy, params.k)
+    ext = phase_extract()
     cap = legacy["capacity"]
     n_unique = count_reads(legacy["err"], params, cap,
                            device="cuda")["n_unique_host"]
@@ -2422,7 +2509,20 @@ def main() -> int:
         "branch_shapes": branches["compact_shapes"]},
         bitonic_entry("sort_blocks", 86), bitonic_entry("merge_blocks", 143),
         hp_entry("digit_histogram", "hist", "pallas_hist.py:74"),
-        hp_entry("partition_by_bucket", "partition", "partition.py:193")],
+        hp_entry("partition_by_bucket", "partition", "partition.py:193"),
+        {"name": "extract_canonical_kmers_packed", "route": "cuda",
+         "source": "genome_tpu_torch/kernels/csrc/extract.cu",
+         # no Pallas kernel: the JAX package extracts with plain jnp
+         # wrapper calls on the main path (legacy + repeats); each is
+         # one __global__ launch
+         "replaces": None,
+         "launches": sum(r["extract_launches"] for r in e2e.values()),
+         "global_launches_per_call": 1, "max_abs_err": 0,
+         "ms": ext["shapes"][0]["ms"],
+         "plain_ms": ext["shapes"][0]["plain_ms"],
+         "bound_ms": ext["shapes"][0]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "matched_plain": True,
+         "device_split": ext["split"], "shapes": ext["shapes"]}],
         "sort_pairs_merge": brows["sort_pairs_merge"],
         "upload": upload, "native_ingest": native, "dist": dist_res,
         "multihost": {k: v for k, v in mh.items() if k != "compact_shapes"},

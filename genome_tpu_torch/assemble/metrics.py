@@ -21,8 +21,10 @@ without a `metrics` argument:
   of device data), `sync_wait_s` (host seconds blocked in them),
   `retries` (work redone after an overflow or taken by a fallback),
   `h2d_bytes` (host-to-device copies) and `sync_sites` (reads by site);
-  the emission adds `d2h_bytes` (its copies to the host) and
-  `contigs_reversed` (contigs it wrote reverse-complemented).
+  the extraction adds `extract_chunks` (code chunks through the packed
+  entry: on the card, one launch of the extraction kernel each), the
+  emission `d2h_bytes` (its copies to the host) and `contigs_reversed`
+  (contigs it wrote reverse-complemented).
 
 With no current Metrics a span is only the profiler range (its `wall_s`
 is still set: it times the block either way), and counters are dropped.

@@ -28,8 +28,7 @@ from genome_tpu_torch.graph.simplify import final_chain_state
 from genome_tpu_torch.kernels.count import (count_kmers_device, filter_table,
                                             merge_tables)
 from genome_tpu_torch.kernels.extract import (
-    extract_canonical_kmers, extract_canonical_kmers_packed,
-    extract_canonical_kmers_packed_nomask, pack_codes_host, pack_reads)
+    extract_canonical_kmers_packed, pack_codes_host, pack_reads)
 from genome_tpu_torch.kernels.hash_table import count_kmers_hashtable
 from genome_tpu_torch.kernels.keys import SENTINEL
 from genome_tpu_torch.kernels.sort_bucket import (count_kmers_bucket,
@@ -68,56 +67,50 @@ def extract_stream(reads, k: int, device="cuda", batch_reads: int = 65536,
                    chunk_rows: int = 1 << 18) -> torch.Tensor:
     """Reads -> flat canonical int64 k-mer stream on `device`.
 
-    `reads` is a list of strings (packed to uint8 codes in batches of
-    `batch_reads`) or a uint8 code matrix [R, L] (packed and uploaded in
-    chunks of `chunk_rows` rows, see _extract_codes; the host packs a
-    chunk while the device extracts the one before, which chip_smoke.py's
-    `[upload]` lines time against one chunk). Rows are uploaded as they
-    are: no row or column padding, so the stream holds exactly
-    R * (L - k + 1) windows."""
+    `reads` is a list of strings (made into uint8 codes in batches of
+    `batch_reads`) or a uint8 code matrix [R, L] (in chunks of
+    `chunk_rows` rows). Each batch or chunk is packed, uploaded and
+    extracted by _extract_codes straight into its slice of the one
+    stream; the host packs a chunk while the device extracts the one
+    before (chip_smoke.py's `[upload]` lines time it against one chunk).
+    Rows are uploaded as they are: no row or column padding, so the
+    stream holds exactly R * (L - k + 1) windows."""
     dev = resolve_device(device)
+    matrix = isinstance(reads, np.ndarray)
+    if matrix:
+        (R, L), step = reads.shape, chunk_rows
+    else:
+        R, step = len(reads), batch_reads
+        L = max((len(r) for r in reads), default=0)
+    nwin = max(L - k + 1, 0)
     with span("count.extract", device=dev):
-        if isinstance(reads, np.ndarray):
-            parts = [_extract_codes(reads[i : i + chunk_rows], k, dev)
-                     for i in range(0, reads.shape[0], chunk_rows)]
-        else:
-            L = max((len(r) for r in reads), default=0)
-            parts = [extract_canonical_kmers(
-                         _upload(pack_reads(reads[i : i + batch_reads], L),
-                                 dev), k)
-                     for i in range(0, len(reads), batch_reads)]
-    if not parts:
-        return torch.zeros(0, dtype=torch.int64, device=dev)
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+        stream = torch.empty(R * nwin, dtype=torch.int64, device=dev)
+        for i in range(0, R if nwin else 0, step):
+            codes = reads[i : i + step] if matrix else pack_reads(
+                reads[i : i + step], L)
+            _extract_codes(codes, k, dev,
+                           stream[i * nwin : (i + codes.shape[0]) * nwin])
+    return stream
 
 
-def _upload(codes: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A batch of the string path's codes, copied as they are."""
-    if dev.type == "cuda":
-        count("h2d_bytes", codes.nbytes)
-    return torch.from_numpy(codes).to(dev)
-
-
-def _extract_codes(codes: np.ndarray, k: int,
-                   dev: torch.device) -> torch.Tensor:
-    """One chunk of a code matrix -> its keys. The native packer writes 4
-    codes a byte (and the validity mask) straight into host tensors,
-    pinned for a CUDA device, which are copied without blocking; the mask
-    is uploaded only when a real code is >= 4. Each chunk gets new pinned
-    tensors: the caching host allocator hands a block out again only
-    after the copy that read it has finished."""
+def _extract_codes(codes: np.ndarray, k: int, dev: torch.device,
+                   out: torch.Tensor) -> None:
+    """One chunk of a code matrix -> its keys, written into `out`. The
+    native packer writes 4 codes a byte (and the validity mask) straight
+    into host tensors, pinned for a CUDA device, which are copied without
+    blocking; the mask is uploaded only when a real code is >= 4. Each
+    chunk gets new pinned tensors: the caching host allocator hands a
+    block out again only after the copy that read it has finished."""
     cuda = dev.type == "cuda"
     with span("count.pack"):
         packed, invalid, has_invalid = pack_codes_host(codes,
                                                        pin_memory=cuda)
     if cuda:
         count("h2d_bytes", packed.nbytes + has_invalid * invalid.nbytes)
+    count("extract_chunks")
     packed = packed.to(dev, non_blocking=cuda)
-    L = codes.shape[1]
-    if not has_invalid:
-        return extract_canonical_kmers_packed_nomask(packed, k, L)
-    invalid = invalid.to(dev, non_blocking=cuda)
-    return extract_canonical_kmers_packed(packed, invalid, k, L)
+    invalid = invalid.to(dev, non_blocking=cuda) if has_invalid else None
+    extract_canonical_kmers_packed(packed, invalid, k, codes.shape[1], out)
 
 
 def count_reads(reads, params: AssemblyParams, capacity: int | None = None,

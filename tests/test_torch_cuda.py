@@ -10,6 +10,7 @@ imports nothing of JAX, so the lane needs only torch there.
 """
 
 import collections
+import functools
 import json
 import warnings
 
@@ -21,9 +22,10 @@ from genome_tpu_torch.assemble import cli, pipeline
 from genome_tpu_torch.assemble.metrics import Metrics
 from genome_tpu_torch.assemble.pipeline import extract_stream, run_pipeline
 from genome_tpu_torch.io import random_genome, simulate_reads
-from genome_tpu_torch.kernels import bitonic, compact, hist, partition
+from genome_tpu_torch.kernels import (bitonic, compact, extract, hist,
+                                      partition)
 from genome_tpu_torch.kernels.extract import (extract_canonical_kmers,
-                                              pack_reads)
+                                              pack_codes_host, pack_reads)
 from genome_tpu_torch.kernels.keys import SENTINEL
 from genome_tpu_torch.kernels.mergesort import sort_pairs_merge
 from genome_tpu_torch.params import AssemblyParams
@@ -234,6 +236,126 @@ def test_packed_upload_chunks_not_corrupted_by_buffer_reuse(
         got = extract_stream(codes, 21, cuda_device, chunk_rows=50_000)
         assert torch.equal(got.cpu(), want)
     assert len(pinned_uploads) == 24 and all(p for p, _ in pinned_uploads)
+
+
+def _packed_on_card(dev, B, L, masked, seed, offset=0):
+    """pack_codes_host's tensors of random codes (N's where masked) on the
+    card, each a view `offset` bytes into its storage."""
+    codes = _upload_codes(0.01 if masked else 0.0, seed, rows=B, L=L)
+    if masked:
+        codes[0, 0] = 4
+    out = []
+    for t in pack_codes_host(codes)[:2]:
+        buf = torch.zeros(t.numel() + offset, dtype=torch.uint8, device=dev)
+        buf[offset:] = t.reshape(-1).to(dev)
+        out.append(buf[offset:].view(t.shape))
+    return out[0], out[1] if masked else None
+
+
+# every (k, L) of the CPU tests' grid, with and without the mask, then
+# rows of more than one tile of windows (cut into segments), inputs at
+# odd byte offsets, one window a row, and k = 1
+_EXTRACT_CASES = [(1000, L, k, m, 0) for k in (15, 21, 31)
+                  for L in (k, k + 1, 37, 100, 101, 150)
+                  for m in (False, True)] + [
+    (3, 9000, 31, True, 0), (3, 9000, 31, False, 5), (1, 4126, 31, True, 3),
+    (2, 8212, 21, False, 1), (5000, 31, 31, True, 0), (1, 150, 31, True, 7),
+    (1000, 150, 31, True, 1), (1000, 100, 21, False, 3), (5, 7, 1, True, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,k,masked,offset", _EXTRACT_CASES)
+def test_extract_kernel_matches_plain_on_card(cuda_device, B, L, k, masked,
+                                              offset):
+    packed, invalid = _packed_on_card(cuda_device, B, L, masked, B + L + k,
+                                      offset)
+    extract.reset_launches()
+    got = extract.extract_canonical_kmers_packed(packed, invalid, k, L)
+    want = extract.extract_canonical_kmers_packed_ref(packed, invalid, k, L)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B * (L - k + 1),)
+    assert torch.equal(got, want)
+    assert extract.LAUNCHES == {"mask" if masked else "nomask": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_rows", [1 << 18, 50_000, 49_999, 4097])
+def test_extract_stream_chunk_boundaries_on_card(cuda_device, chunk_rows):
+    """Chunks written into their slices of one stream, the last one
+    short, with and without N's, equal the CPU's stream; one launch a
+    chunk, and one `extract_chunks` a chunk in the count phase."""
+    codes = _upload_codes(0.0005, 9, rows=120_001, L=150)
+    want = extract_stream(codes, 31, "cpu", chunk_rows=chunk_rows)
+    extract.reset_launches()
+    m = Metrics(quiet=True)
+    with m.phase("count"):
+        got = extract_stream(codes, 31, cuda_device, chunk_rows=chunk_rows)
+    assert torch.equal(got.cpu(), want)
+    n_chunks = -(-codes.shape[0] // chunk_rows)
+    assert sum(extract.LAUNCHES.values()) == n_chunks
+    end = next(e for e in m.events if e["event"] == "phase_end")
+    assert end["extract_chunks"] == n_chunks
+
+
+@pytest.mark.cuda
+def test_extract_kernel_behind_a_device_sleep(cuda_device):
+    """Chunks queued behind a long sleep, written into slices of one
+    stream by the kernel: the later chunks' inputs, freed and allocated
+    again on the host and the device, must not reach the earlier
+    chunks' keys. The string path, which packs each batch the same way,
+    equals the code matrix's stream."""
+    codes = _upload_codes(0.001, 10, rows=200_000, L=101)
+    want = extract_stream(codes, 21, "cpu", chunk_rows=30_000)
+    for _ in range(2):
+        torch.cuda._sleep(200_000_000)  # about 0.1 s of GPU cycles
+        got = extract_stream(codes, 21, cuda_device, chunk_rows=30_000)
+        assert torch.equal(got.cpu(), want)
+    reads = ["".join("ACGTN"[c] for c in row) for row in codes[:3000]]
+    torch.cuda._sleep(200_000_000)
+    got = extract_stream(reads, 21, cuda_device, batch_reads=700)
+    assert torch.equal(got.cpu(), want[: 3000 * 81])
+
+
+@pytest.mark.cuda
+def test_extract_launches_equal_chunks_on_run_pipeline(cuda_device,
+                                                       monkeypatch):
+    """run_pipeline's count extracts every chunk by the kernel, and its
+    count phase says so; the contigs are the CPU's."""
+    codes = pack_reads(_sim3kb())
+    params = AssemblyParams(k=21, min_coverage=2)
+    monkeypatch.setattr(pipeline, "extract_stream", functools.partial(
+        pipeline.extract_stream, chunk_rows=100))
+    want = run_pipeline(codes, params, device="cpu")["contigs"]
+    extract.reset_launches()
+    m = Metrics(quiet=True)
+    got = run_pipeline(codes, params, metrics=m, device=cuda_device)
+    assert got["contigs"] == want
+    n_chunks = -(-codes.shape[0] // 100)
+    assert extract.LAUNCHES == {"nomask": n_chunks}
+    ends = {e["phase"]: e for e in m.events if e["event"] == "phase_end"}
+    assert ends["count"]["extract_chunks"] == n_chunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dtype", "width", "mask_shape",
+                                  "mask_device", "out_device", "out_size",
+                                  "k"])
+def test_extract_kernel_refuses_what_it_does_not_take(cuda_device, case):
+    packed, invalid = _packed_on_card(cuda_device, 8, 40, True, 1)
+    args = dict(packed=packed, invalid=invalid, k=21, L=40, out=None)
+    args.update({
+        "dtype": dict(packed=packed.to(torch.int16)),
+        "width": dict(L=44),
+        "mask_shape": dict(invalid=invalid[:4].contiguous()),
+        "mask_device": dict(invalid=invalid.cpu()),
+        "out_device": dict(out=torch.empty(160, dtype=torch.int64)),
+        "out_size": dict(out=torch.empty(161, dtype=torch.int64,
+                                         device=cuda_device)),
+        "k": dict(k=0)}[case])
+    extract.reset_launches()
+    with pytest.raises(ValueError):
+        extract.extract_canonical_kmers_packed(**args)
+    assert not extract.LAUNCHES
 
 
 def _bitonic_case(dev, block, nblocks, dtypes, fill, seed):

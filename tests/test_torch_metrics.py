@@ -230,10 +230,9 @@ def test_spans_in_the_profile_trace(tmp_path):
     with open(tmp_path / "trace.json") as f:
         ev = json.load(f)["traceEvents"]
     names = {e["name"] for e in ev if e.get("cat") == "user_annotation"}
-    assert {pipeline.PROFILE_ANNOTATION, *PIPELINE_SPANS} - {"count.pack"} \
-        <= names
-    # the string path packs no code matrix
-    assert "count.pack" not in {e["name"] for e in _spans(m.events)}
+    assert {pipeline.PROFILE_ANNOTATION, *PIPELINE_SPANS} <= names
+    # the string path packs each batch, as a code matrix's chunks are
+    assert "count.pack" in {e["name"] for e in _spans(m.events)}
 
 
 @pytest.mark.parametrize("case", ["walk_ladder", "kill_buffer", "tails",

@@ -19,8 +19,7 @@ from genome_tpu_torch.assemble.pipeline import extract_stream
 from genome_tpu_torch.io.native import cio
 from genome_tpu_torch.kernels.extract import (
     _pack_codes_numpy, extract_canonical_kmers,
-    extract_canonical_kmers_packed, extract_canonical_kmers_packed_nomask,
-    pack_codes_host, pack_reads)
+    extract_canonical_kmers_packed, pack_codes_host, pack_reads)
 
 from tests.torch_cpu import one_torch_thread  # noqa: F401
 
@@ -225,7 +224,7 @@ def test_packed_extractors_match_jax_and_uint8_path(L, k):
     clean = _codes(L * 100 + k + 1, 23, L, n_rate=0.0)  # no N's: no mask
     packed, _, has_invalid = pack_codes_host(clean)
     assert not has_invalid
-    got = extract_canonical_kmers_packed_nomask(packed, k, L)
+    got = extract_canonical_kmers_packed(packed, None, k, L)
     assert torch.equal(got, extract_canonical_kmers(torch.from_numpy(clean),
                                                     k))
     assert torch.equal(got, _jax_real_keys(clean, k, masked=False))
@@ -244,7 +243,7 @@ def test_packed_extractors_at_short_widths(L, k):
                        want)
     codes[codes >= 4] = 1
     packed, _, _ = pack_codes_host(codes)
-    assert torch.equal(extract_canonical_kmers_packed_nomask(packed, k, L),
+    assert torch.equal(extract_canonical_kmers_packed(packed, None, k, L),
                        extract_canonical_kmers(torch.from_numpy(codes), k))
 
 

@@ -174,19 +174,14 @@ def test_code_matrix_upload_variants_give_golden(monkeypatch, with_n):
         codes[rng.random(codes.shape) < 0.002] = 4
         reads = codes_to_reads(codes, codes.shape[0])
     calls = []
+    fn = pipeline.extract_canonical_kmers_packed
 
-    def spy(name):
-        fn = getattr(pipeline, name)
-
-        def wrapped(*args):
-            calls.append(name)
-            return fn(*args)
-        monkeypatch.setattr(pipeline, name, wrapped)
-    spy("extract_canonical_kmers_packed")
-    spy("extract_canonical_kmers_packed_nomask")
+    def spy(packed, invalid, *args):
+        calls.append(invalid is not None)
+        return fn(packed, invalid, *args)
+    monkeypatch.setattr(pipeline, "extract_canonical_kmers_packed", spy)
     got = run_pipeline(codes, params, device="cpu")
-    assert calls == ["extract_canonical_kmers_packed" if with_n
-                     else "extract_canonical_kmers_packed_nomask"]
+    assert calls == [with_n]
     assert got["contigs"] == assemble_golden(reads, params)
     assert got["stats"]["n_windows"] == codes.shape[0] * (codes.shape[1] - 20)
 
