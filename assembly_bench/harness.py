@@ -183,6 +183,12 @@ def _run(wl, cell, cfg, entry, metrics, readers, seed, seconds,
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
         launches = _launch_total()
 
+    # the isolates, so that two commits' can be compared from their runs'
+    # logs (hashed here, not in the set-up that setup_s times)
+    for i, iso in enumerate(isolates):
+        log(f"[isolate {i}] reads={iso.shape[0]} "
+            f"sha256={hashlib.sha256(iso).hexdigest()}", file=sys.stderr)
+
     # ---- outputs, then the program's state freed ----
     got = []
     for job, raw in zip(jobs, raws):

@@ -32,9 +32,15 @@ def phase_ms(rec: dict, phase: str, field: str = "wall_s") -> float | None:
     return 1e3 * statistics.fmean(values) if values else None
 
 
-# the names the phases' spans take in a trace's idle gaps
+# the names the phases' spans take in a trace's idle gaps (the dist ones
+# as BENCHMARK.json names their layers)
 SPAN_NAMES = {"read_input": "parse", "count": "count", "build": "build",
-              "simplify": "simplify"}
+              "simplify": "simplify", "dist_extract": "dist extraction",
+              "dist_count": "dist count", "dist_build": "dist build",
+              "dist_simplify_sharded": "dist simplify",
+              "dist_simplify": "dist simplify",
+              "dist_final_sharded": "dist final state",
+              "dist_contigs": "dist emission"}
 
 
 def spans(rec: dict) -> list[tuple[float, float, str]]:

@@ -4,7 +4,9 @@ deterministic, and every metric reader reads what it should."""
 
 from __future__ import annotations
 
+import hashlib
 import json
+import types
 
 import numpy as np
 import pytest
@@ -55,23 +57,101 @@ def test_benchmark_contract_shape():
     for m in BENCH["per_layer"]:
         assert m["moves"] == "bases_per_s"
         assert set(m["workloads"]) <= set(names)
+    four = [w for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4)
     for w in BENCH["workloads"]:
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        # four chips only where the cell runs the sharded path, one a rank
+        cfg = harness.load_config(w["config"])
+        sharded = harness.load_cell(w["name"])["entry"] == "multihost"
+        assert w["chips"] == (cfg["ranks"] if sharded else 1)
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
     for m in BENCH["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25
 
 
-def test_new_cell_taken_without_code_edit(tmp_path):
-    root = bench_copy(tmp_path, cells={"tiny.added": dict(
-        entry="pipeline", coverage=20, ploidy=1, isolates=2)})
-    out = harness.run_cell("tiny.added", 2**31 + 11, 0.5, False,
-                           device="cpu", root=root, log=lambda *a, **k: None)
+# a 3 kbp circle at 2 copies a cell: it shares no k-mer with the
+# chromosome, so it assembles to an isolated cycle, which has no head. At
+# 40x and 0.2 % substitutions it stays one cycle; at 20 copies (400x)
+# error k-mers seen twice or more branch it into some 240 contigs, and the
+# ruler ranking finds heads
+CIRCLE = {"replicons": [dict(name="circle", length=3000, circular=True,
+                             copies=2)]}
+
+
+@pytest.mark.parametrize("config,keys,reads", [
+    ("tiny", {}, 20 * 20000 // 100),
+    ("tinymt", CIRCLE, 20 * 20000 // 100 + 20 * 2 * 3000 // 100)],
+    ids=["linear", "circular_replicon"])
+def test_new_cell_taken_without_code_edit(tmp_path, config, keys, reads):
+    cell = dict(entry="pipeline", coverage=20, ploidy=1, isolates=2)
+    root = bench_copy(tmp_path, configs={config: keys},
+                      cells={f"{config}.added": cell})
+    lines = []
+    out = harness.run_cell(f"{config}.added", 2**31 + 11, 0.5, False,
+                           device="cpu", root=root,
+                           log=lambda *a, **k: lines.append(" ".join(a)))
     res = out["result"]
     assert res["correct"] and res["attempted"] >= 1 and res["failed"] == 0
     assert {"setup_s", "bases_per_s"} <= set(res["metrics"])
     assert list(res)[-1] == "checks"
     rec = out["record"]
-    assert rec["jobs"][0]["bases"] == 20 * 20000 // 100 * 100
+    assert rec["jobs"][0]["bases"] == reads * 100
+    # each isolate's reads and digest, logged once the window has closed
+    cfg = harness.load_config(config, root / "assembly_bench")
+    isolates = gen.make_isolates(cfg, cell, 2**31 + 11)
+    assert [ln for ln in lines if ln.startswith("[isolate ")] == [
+        f"[isolate {i}] reads={reads} "
+        f"sha256={hashlib.sha256(iso).hexdigest()}"
+        for i, iso in enumerate(isolates)]
+
+
+def test_circular_replicon_takes_the_dense_cycle_path(tmp_path,
+                                                      monkeypatch):
+    """The circle's cycle reaches final_chain_state's dense path in every
+    job: the ruler ranking returns ok False; the reference emits the
+    cycle as one contig of its length + k - 1 (SEMANTICS.md section 6)."""
+    from assembly_bench import reference
+    from genome_tpu_torch.graph import simplify
+    oks, per_job, refs = [], [], []
+    rank = simplify._rank_rulers
+
+    def spy_rank(prev_u):
+        out = rank(prev_u)
+        oks.append(bool(out[2]))
+        return out
+    monkeypatch.setattr(simplify, "_rank_rulers", spy_rank)
+    assemble = reference.assemble
+
+    def spy_assemble(*a, **k):
+        refs.append(assemble(*a, **k))
+        return refs[-1]
+    monkeypatch.setattr(reference, "assemble", spy_assemble)
+
+    def wrap(entry):
+        def run(state, job):
+            n = len(oks)
+            raw = entry.run(state, job)
+            per_job.append(oks[n:])
+            return raw
+        return types.SimpleNamespace(prepare=entry.prepare, run=run,
+                                     collect=entry.collect,
+                                     cleanup=entry.cleanup)
+
+    root = bench_copy(tmp_path, configs={"tinymt": CIRCLE}, cells={
+        "tinymt.circle": dict(entry="pipeline", coverage=20, ploidy=1,
+                              isolates=2)})
+    out = harness.run_cell("tinymt.circle", 2**31 + 11, 0.5, False,
+                           device="cpu", root=root, log=lambda *a, **k: None,
+                           wrap_entry=wrap)
+    res = out["result"]
+    assert res["correct"] and res["failed"] == 0
+    # the two warm-up jobs and the window's
+    assert len(per_job) == 2 + res["attempted"]
+    assert all(job and not any(job) for job in per_job)
+    k = harness.load_config("tinymt", root / "assembly_bench")["k"]
+    assert len(refs) == 2
+    for contigs in refs:
+        assert [len(c) for c in contigs].count(3000 + k - 1) == 1
 
 
 TINY_CFG = dict(genome_len=30000, repeat_families=[[2000, 4]],
@@ -98,9 +178,11 @@ def test_generator_deterministic_per_seed(ploidy):
 def test_stated_read_counts(wl):
     cell = harness.load_cell(wl["name"])
     cfg = harness.load_config(cell["config"])
-    stated = {"ecoli_k21.fastq24": 1_113_996, "ecoli_k21.codes100": 4_641_652,
+    stated = {"ecoli_k21.fastq24": 1_113_996,
               "yeast_k31.diploid30": 2_414_265,
-              "yeast_k31.haploid30": 2_414_265}
+              "yeast_k31.haploid30": 2_414_265,
+              "chr14_k31.multihost30": 26_224_615,
+              "ecoli_k21.codes24": 1_113_996}
     assert gen.n_reads(cfg, cell) == stated[wl["name"]]
     assert cell.get("isolates", 2) == 2
 
@@ -236,7 +318,6 @@ def test_harness_card_check_exits_without_a_result(capsys):
 
 
 def test_idle_gaps_named_by_phase_spans():
-    import types
     events = [
         _event("user_annotation", trace.ANNOTATION, 100, 100),
         _event("cpu_op", "aten::sort", 105, 20),
@@ -267,6 +348,30 @@ def test_record_spans_from_metrics_events():
     a = 10.9 - 0.06
     assert (a, a + 0.01, "final state") in spans
     assert (a + 0.01, 10.9, "emission") in spans
+
+
+def test_record_spans_name_the_dist_phases():
+    """A multihost job's events (rank 0's): each dist phase is a span under
+    its layer's name, the escape's replicated simplify as the sharded
+    one's."""
+    names = {"dist_extract": "dist extraction", "dist_count": "dist count",
+             "dist_build": "dist build",
+             "dist_simplify_sharded": "dist simplify",
+             "dist_simplify": "dist simplify",
+             "dist_final_sharded": "dist final state",
+             "dist_contigs": "dist emission"}
+    ev, t = [], 10.0
+    for phase in names:
+        t += 0.5
+        ev.append(dict(event="phase_end", phase=phase, ts=t, wall_s=0.5))
+    ev.append(dict(event="done"))
+    rec = dict(jobs=[dict(t0_wall=10.0, t1_wall=t + 0.1, events=ev)])
+    spans = records.spans(rec)
+    assert spans[0] == (10.0, t + 0.1, "job, outside phases")
+    assert [(b - a, n) for a, b, n in spans[1:]] == pytest.approx(
+        [(0.5, n) for n in names.values()])
+    assert [a for a, _, _ in spans[1:]] == pytest.approx(
+        [10.0 + 0.5 * i for i in range(len(names))])
 
 
 def test_compaction_bytes():
